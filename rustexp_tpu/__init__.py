@@ -1,10 +1,10 @@
-"""rustexp_tpu — a TPU-native simulation & software-rendering engine.
+"""rustexp_tpu — a GPU simulation & software-rendering engine in JAX.
 
 Built from scratch in JAX/XLA/Pallas with the capabilities of the
 blitzcode/rust-exp reference (a Haskell/Rust CPU playground): a software
 rasterizer with irradiance-cubemap IBL shading, a gravitational N-body
 simulator, a Game of Life cellular automaton, and a sine-scroller demo —
-re-designed TPU-first:
+re-designed as array programs:
 
   * pure step/render functions over explicit state pytrees, `jit`-compiled
   * Pallas kernels for the hot inner loops (stencil, all-pairs forces,

@@ -337,10 +337,9 @@ def main(argv=None):
         k, _, ch = args.inject_key.partition(":")
         inject = (max(1, int(k)), ch or " ")
 
-    from ..core.platform import honor_jax_platforms_env, require_live_backend
+    from ..core.platform import enable_compile_cache
 
-    honor_jax_platforms_env()
-    require_live_backend()
+    enable_compile_cache()
     run_viewer(args.size, args.fps, args.frames, args.start,
                vsync=not args.no_vsync, inject_every=inject,
                report=args.report)

@@ -5,7 +5,7 @@ A set is five cubemaps pre-convolved with cos^{0,1,8,64,512} lobes
 rasterizer.rs:492-527), each six 64x64 HDR faces named
 ``env_cos_{power}_{x+|x-|y+|y-|z+|z-}.hdr`` (rasterizer.rs:570-583).
 
-TPU-first layout: one dense float32 array ``[5, 6, 64, 64, 3]`` per set so
+Device layout: one dense float32 array ``[5, 6, 64, 64, 3]`` per set so
 every shader lookup is a single gather into one device-resident table; the
 whole 9-set library stacks to ``[9, 5, 6, 64, 64, 3]`` (~33 MB) and can stay
 in HBM.

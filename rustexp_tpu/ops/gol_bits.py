@@ -1,38 +1,52 @@
-"""Bit-packed (SWAR) Game of Life kernel — 32 cells per uint32 word.
+"""Bit-packed (SWAR) Game of Life — 32 cells per uint32 word.
 
 Same semantics as ops/gol_stencil.py (reference: gol_step,
 rs-src/gol.rs:31-170 — 8-neighbor torus sum, rule ``alive_nb == 3 ||
 (alive && alive_nb == 2)``, gol.rs:79), but cells are BITS: word
-``P[w, c]`` bit ``b`` holds ``cell[32*w + b, c]``, so one [8, 128] vreg
-carries 32,768 cells and the whole neighbor count runs as bitwise
-full-adder logic (carry-save arithmetic) on the VPU:
-
-  * 32x fewer vregs per grid than the f32 roll kernel — a 256^2 grid is
-    TWO vregs, and the VMEM-resident ceiling rises from ~640k cells to
-    multi-megacell grids.
-  * ~45 bitwise ops/generation on those few vregs vs ~12 roll/add ops
-    per generation on 32x more vregs for the f32 form.
+``P[w, c]`` bit ``b`` holds ``cell[32*w + b, c]``, and the whole neighbor
+count runs as bitwise full-adder logic (carry-save arithmetic), ~45
+bitwise operations per word per generation.
 
 Packing rows (not columns) into bits keeps both neighbor axes cheap:
-column neighbors are lane rolls of the packed array, row neighbors are
-in-word shifts with a 1-sublane roll carrying the word-boundary bit.
-The bit-level rule is exact — cells are binary, the carry-save adders
-compute the same integer neighbor count, so this path is bit-identical
-to step_roll/step_mxu (tests/test_gol.py::test_swar_parity).
+column neighbors are neighboring words of the same word row, row
+neighbors are in-word shifts plus the boundary bit of the word above or
+below. The bit-level rule is exact, so every form here is bit-identical
+to step_roll (tests/test_gol.py::test_swar_parity).
+
+Two implementations of one generation:
+
+  * ``_gen_bits`` — plain jnp (rolls in a fori_loop). The CPU path, the
+    tests' twin, and the plain-XLA form the kernel is timed against: one
+    XLA fusion per generation, one launch each.
+  * the CUDA kernel (ops/cuda/gol_swar.cu, through jax.ffi) — on a GPU.
+    A block keeps its tile of the packed grid plus a halo in shared
+    memory for kk generations (``pick_plan``).
+    ``multi_step_packed_tiled`` is the jnp twin of that tiling, so the
+    plan and halo logic are tested on the CPU.
 """
 
 from __future__ import annotations
 
 from functools import partial
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 BITS = 32
-_UNROLL = 32
+
+# Shared memory a block may use for its two tile buffers (H100: up to
+# 227 KB per block). Keeping well under it leaves room for two resident
+# blocks per SM.
+SMEM_BYTES = 96 * 1024
+NUM_SMS = 132  # H100 SXM
+THREADS = 512  # per block (ops/cuda/gol_swar.cu kBlockX * kBlockY)
+# Launch overhead in "rounds" (one round = every thread of a block
+# updating one word, ~0.1 us with its barrier): a launch costs ~4 us. A
+# modelled constant, not a calibrated one; it only trades halo waste
+# against launch count.
+LAUNCH_ROUNDS = 40
 
 
 def pack_rows(grid) -> jnp.ndarray:
@@ -51,10 +65,12 @@ def unpack_rows(packed, dtype=jnp.int32) -> jnp.ndarray:
     return (b & jnp.uint32(1)).astype(dtype).reshape(wn * BITS, c)
 
 
-def _gen_bits(p, wn: int, cn: int):
-    """One generation on the packed grid (torus). ~45 bitwise vreg-ops.
+def _gen_from_neighbors(p, above, below, left, right):
+    """One generation of word array `p` given its four neighbor shifts.
 
-    Carry-save adders: the vertical 3-row sum per cell is 2 bits
+    `above`/`below` map a word array to the word row above/below each
+    word (torus roll or zero-filled shift); `left`/`right` likewise for
+    columns. Carry-save adders: the vertical 3-row sum per cell is 2 bits
     (s1, s0), the horizontal sum of three such 2-bit numbers is the 4-bit
     3x3 box count (b3..b0); the rule in box form (box = neighbors + self)
     is ``box == 3 || (alive && box == 4)`` — identical to the reference's
@@ -64,18 +80,16 @@ def _gen_bits(p, wn: int, cn: int):
     b31 = jnp.uint32(BITS - 1)
 
     # Row neighbors: bit b of `up` is cell[32w+b-1], i.e. the row above.
-    up = (p << one) | (pltpu.roll(p, 1, 0) >> b31)
-    down = (p >> one) | (pltpu.roll(p, wn - 1, 0) << b31)
+    up = (p << one) | (above(p) >> b31)
+    down = (p >> one) | (below(p) << b31)
 
     # Vertical triple up+p+down as 2-bit carry-save (s1, s0)
     s0 = up ^ p ^ down
     s1 = (up & p) | (down & (up ^ p))
 
     # Column neighbors of the 2-bit sums
-    l0 = pltpu.roll(s0, 1, 1)
-    l1 = pltpu.roll(s1, 1, 1)
-    r0 = pltpu.roll(s0, cn - 1, 1)
-    r1 = pltpu.roll(s1, cn - 1, 1)
+    l0, l1 = left(s0), left(s1)
+    r0, r1 = right(s0), right(s1)
 
     # box bit0 + carry into the 2s column
     b0 = l0 ^ s0 ^ r0
@@ -98,258 +112,155 @@ def _gen_bits(p, wn: int, cn: int):
     return eq3 | (p & eq4)
 
 
-def _pick_unroll(words: int) -> int:
-    """Generations unrolled inside the kernel's fori_loop body.
-
-    Unrolling hides loop bookkeeping when a generation is only a few
-    vreg-ops (256^2 packed = 2 vregs); on large blocks a generation is
-    thousands of vreg-ops, bookkeeping is invisible, and a 32x-unrolled
-    body only multiplies Mosaic's scheduling work (measured: ~300 s
-    compile for a [80, 4096] block at unroll 32). Budget ~64 unrolled
-    vreg-iterations per loop body."""
-    return max(1, min(_UNROLL, 65536 // max(words, 1)))
+def _gen_bits(p):
+    """One generation on the packed torus (plain jnp)."""
+    return _gen_from_neighbors(
+        p,
+        above=lambda x: jnp.roll(x, 1, 0), below=lambda x: jnp.roll(x, -1, 0),
+        left=lambda x: jnp.roll(x, 1, 1), right=lambda x: jnp.roll(x, -1, 1))
 
 
-def _swar_kernel(steps_ref, grid_ref, out_ref, *, wn: int, cn: int,
-                 unroll: int):
-    steps = steps_ref[0]
-
-    def body_u(_, g):
-        for _ in range(unroll):
-            g = _gen_bits(g, wn, cn)
-        return g
-
-    g = grid_ref[:]
-    g = lax.fori_loop(0, steps // unroll, body_u, g)
-    out_ref[:] = lax.fori_loop(0, steps % unroll,
-                               lambda _, x: _gen_bits(x, wn, cn), g)
+def _shift(x, n: int, axis: int):
+    """Zero-filled shift: out[i] = x[i - n] along `axis` (0 where out of
+    range) — the kernel's tile-edge rule."""
+    pad = [(0, 0), (0, 0)]
+    if n > 0:
+        pad[axis] = (n, 0)
+        x = jnp.pad(x, pad)
+        return lax.slice_in_dim(x, 0, x.shape[axis] - n, axis=axis)
+    pad[axis] = (0, -n)
+    x = jnp.pad(x, pad)
+    return lax.slice_in_dim(x, -n, x.shape[axis], axis=axis)
 
 
-@partial(jax.jit, static_argnames=("interpret",))
-def multi_step_packed(packed, k, interpret: bool | None = None):
-    """k generations on a packed [W, C] uint32 grid, one Pallas dispatch.
+def _gen_bits_open(p):
+    """One generation of a tile whose outside reads as dead cells."""
+    return _gen_from_neighbors(
+        p,
+        above=lambda x: _shift(x, 1, 0), below=lambda x: _shift(x, -1, 0),
+        left=lambda x: _shift(x, 1, 1), right=lambda x: _shift(x, -1, 1))
 
-    k is a traced scalar (prefetch) — no recompile on change. The packed
-    grid plus the adder temporaries stay VMEM-resident for all k steps.
+
+@partial(jax.jit, static_argnames=("k",))
+def multi_step_packed_xla(packed, k: int):
+    """k generations on a packed [W, C] grid, one XLA fusion each."""
+    return lax.fori_loop(0, k, lambda _, p: _gen_bits(p), packed)
+
+
+class Plan(NamedTuple):
+    """Kernel tiling for a packed [wn, cn] grid: blocks of bw word rows x
+    cw columns, each loading a halo of hw = ceil(kk/32) word rows and
+    hc = kk columns (torus-wrapped from the grid), run kk generations per
+    launch; what leaks in from the halo's open edge travels one cell per
+    generation and never reaches the interior."""
+
+    bw: int
+    cw: int
+    kk: int
+
+    @property
+    def hw(self) -> int:
+        return -(-self.kk // BITS)
+
+    @property
+    def hc(self) -> int:
+        return self.kk
+
+
+def _tile_bytes(th: int, tw: int) -> int:
+    return 2 * th * tw * 4  # two uint32 buffers (read / write generation)
+
+
+def pick_plan(wn: int, cn: int, k: int,
+              smem_bytes: int | None = None) -> Plan:
+    """The cheapest kernel tiling for k generations of a packed grid.
+
+    Cost per generation, in rounds of the busiest SM (one round = every
+    thread of a block updating one word):
+      ceil(blocks / NUM_SMS) * ceil(tile_words / THREADS) + LAUNCH_ROUNDS / kk
+    over kk in {8, 16, 32, 64} (capped at k), bw | wn and cw | cn with cw
+    a multiple of 32 (full warps), both buffers within `smem_bytes`.
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    wn, cn = packed.shape
-    return pl.pallas_call(
-        partial(_swar_kernel, wn=wn, cn=cn, unroll=_pick_unroll(wn * cn)),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(1,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
-            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-        ),
-        out_shape=jax.ShapeDtypeStruct((wn, cn), jnp.uint32),
-        interpret=interpret,
-    )(jnp.asarray([k], dtype=jnp.int32), packed)
-
-
-# The adder temporaries keep ~8 packed-grid copies live; guard the
-# scoped-VMEM limit (16 MB on v5e) with margin. 2048^2 compiles and runs
-# (0.5 MB packed, measured 3.75 us/gen = 1.12e12 cells/s); 4096^2 (2 MB
-# packed) FAILS TPU compile — shard rows beyond this (parallel/gol_shard).
-MAX_CELLS = 2048 * 2048
-
-
-@partial(jax.jit, static_argnames=("interpret",))
-def multi_step_swar(grid, k, interpret: bool | None = None):
-    """Drop-in multi_step: [R, C] cell grid -> k generations -> same shape.
-
-    Packs rows to bits, runs the SWAR kernel, unpacks. Pack/unpack is two
-    cheap vector passes per DISPATCH (not per generation).
-    """
-    r, c = grid.shape
-    if r % BITS or r * c > MAX_CELLS:
-        raise ValueError(
-            f"{r}x{c} grid not supported by the SWAR kernel "
-            f"(rows % {BITS} == 0 and cells <= {MAX_CELLS}); use "
-            "multi_step_swar_banded, gol_stencil.multi_step, or shard "
-            "rows (parallel/gol_shard)")
-    out = multi_step_packed(pack_rows(grid), k, interpret=interpret)
-    return unpack_rows(out, dtype=grid.dtype)
-
-
-# Per-band packed block budget for the banded path, in uint32 words of
-# (band + 2h)/32 x cols. Measured on v5e (tools/sweep_gol_banded.py):
-# 1.25 MB blocks compile and run (4096^2 band=2048 k=256, 8192^2
-# band=1024 k=128 — the measured throughput optima); 1.5 MB blocks fail
-# TPU compile on the ~8 adder temporaries vs the 16 MB scoped-VMEM limit.
-VMEM_BLOCK_WORDS = 320 * 1024
-
-
-def _pad8(words: int) -> int:
-    """VMEM blocks tile rows in (8, 128) vregs: a packed block's word-row
-    count rounds UP to a multiple of 8 sublanes — both for the VMEM
-    footprint and for the vector ops that run on it. Measured: a
-    [20, 16384] block (1.25 MB nominal) fails TPU compile at 17.45 MB
-    scoped VMEM while [40, 8192] (same words, 40 % 8 == 0) runs."""
-    return -(-words // 8) * 8
-
-
-def pick_band(rows: int, cols: int, k: int,
-              budget: int | None = None) -> int:
-    """Largest feasible band for multi_step_*_banded at halo depth k.
-
-    Feasible: band | rows, band % 32 == 0, h = ceil(k/32)*32 <= band, and
-    the SUBLANE-PADDED packed block ceil((band + 2h)/32 / 8)*8 x cols
-    stays under the measured VMEM budget. Raises if no band qualifies
-    (grid too wide for this k — lower k or shard rows via
-    parallel/gol_shard)."""
-    if budget is None:
-        budget = VMEM_BLOCK_WORDS
-    hw = -(-int(k) // BITS)
-    best = 0
-    for bw in range(hw, rows // BITS + 1):
-        band = bw * BITS
-        if rows % band == 0 and _pad8(bw + 2 * hw) * cols <= budget:
-            best = band
-    if not best:
-        raise ValueError(
-            f"no feasible band for {rows}x{cols} at k={k}; lower k or "
-            "shard rows (parallel/gol_shard)")
-    return best
-
-
-def pick_plan(rows: int, cols: int, k: int,
-              budget: int | None = None) -> tuple[int, int]:
-    """(band, kk): the cheapest banded dispatch plan for k generations.
-
-    kk = generations per dispatch (halo depth h = ceil(kk/32)*32). The
-    per-generation cost of a plan is modeled as
-
-        pad8((band + 2h)/32) / (band/32)   redundant-halo + sublane-pad
-      + 2.0 / kk                           per-dispatch HBM concat/slice
-
-    (the dispatch term: one banded dispatch copies the packed grid for
-    halo concat + interior slice, ~2 generation-equivalents of HBM
-    traffic, amortized over kk). All feasible (band, kk<=min(k,256))
-    pairs are scored; ties inside 1% prefer larger kk (fewer dispatches
-    also means fewer queue round-trips off-graph). Reproduces the
-    measured optima: (2048, 256)-class plans at 4096^2, (1024, 128) at
-    8192^2, (256, 128) at 16384^2. Raises when even kk=1 is infeasible
-    (shard rows instead)."""
-    best = None  # (cost, -kk, band)
-    kk = max(1, min(int(k), 256))
-    while kk >= 1:
+    budget = SMEM_BYTES if smem_bytes is None else smem_bytes
+    best = None  # (cost, plan)
+    kks = sorted({min(kk, max(int(k), 1)) for kk in (8, 16, 32, 64)})
+    cws = [c for c in range(BITS, cn + 1, BITS) if cn % c == 0]
+    bws = [b for b in range(1, wn + 1) if wn % b == 0]
+    for kk in kks:
         hw = -(-kk // BITS)
-        for bw in range(hw, rows // BITS + 1):
-            band = bw * BITS
-            feasible = (rows % band == 0
-                        and _pad8(bw + 2 * hw) * cols
-                        <= (VMEM_BLOCK_WORDS if budget is None else budget))
-            if not feasible:
-                continue
-            cost = _pad8(bw + 2 * hw) / bw + 2.0 / kk
-            if best is None or cost < best[0] * 0.99:
-                best = (cost, kk, band)
-        kk //= 2
+        for cw in cws:
+            for bw in bws:
+                th, tw = bw + 2 * hw, cw + 2 * kk
+                if _tile_bytes(th, tw) > budget:
+                    continue
+                blocks = (wn // bw) * (cn // cw)
+                waves = -(-blocks // NUM_SMS)
+                cost = waves * -(-th * tw // THREADS) + LAUNCH_ROUNDS / kk
+                if best is None or cost < best[0]:
+                    best = (cost, Plan(bw, cw, kk))
     if best is None:
-        raise ValueError(
-            f"no feasible banded plan for {rows}x{cols} at any kk<=256; "
-            "shard rows (parallel/gol_shard)")
-    return best[2], best[1]
+        raise ValueError(f"no kernel plan fits a packed {wn}x{cn} grid")
+    return best[1]
 
 
-@partial(jax.jit, static_argnames=("k", "band", "interpret"))
-def multi_step_packed_banded(packed, k: int, band: int = 2048,
-                             interpret: bool | None = None):
-    """k SWAR generations on a packed grid PAST the VMEM ceiling.
-
-    Single-chip analog of parallel/gol_shard's "bits" backend: the packed
-    grid is cut into row bands, each band is padded with h = ceil(k/32)*32
-    halo rows (= whole uint32 words — no bit surgery) from its torus
-    neighbors, and vmap runs the packed kernel over all bands in one
-    dispatch (vmap over pallas_call becomes a leading grid dimension —
-    each band's packed block plus adder temporaries is VMEM-resident on
-    its own). The kernel's wrong y-wrap at band edges contaminates one
-    row per generation inward; h halo rows absorb all k generations, so
-    the interior is bit-exact (tests/test_gol.py::test_swar_banded_parity).
-    Redundant halo compute is 2h/band per band; unlike MAX_CELLS there is
-    no grid-size ceiling — 4096^2 and 8192^2 run at SWAR rates where the
-    MXU circulant path decays as 1/n.
-
-    k is STATIC here (it sets the halo depth); band must divide the rows,
-    band % 32 == 0, and h <= band (k <= band generations per dispatch).
-    """
-    if k == 0:
-        # hw=0 would make the [-hw:] halo slice grab WHOLE neighbor bands
-        # (Python's -0 slice), replacing every band with the one above it.
-        return packed
-    wn, c = packed.shape
-    bw = band // BITS
-    if band % BITS or wn % bw:
-        raise ValueError(f"band {band} needs band % {BITS} == 0 and "
-                         f"band/{BITS} | {wn} packed rows")
-    hw = -(-int(k) // BITS)  # halo words; h = 32*hw rows >= k
-    if hw > bw:
-        raise ValueError(f"k={k} needs h={hw * BITS} halo rows > "
-                         f"band={band} rows; raise band")
-    nb = wn // bw
-    blocks = packed.reshape(nb, bw, c)
-    lo = jnp.roll(blocks, 1, axis=0)[:, -hw:, :]   # words above each band
-    hi = jnp.roll(blocks, -1, axis=0)[:, :hw, :]   # words below
-    padded = jnp.concatenate([lo, blocks, hi], axis=1)  # [nb, bw+2hw, c]
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    stepped = jax.vmap(
-        lambda p: multi_step_packed(p, jnp.int32(k), interpret=interpret)
-    )(padded)
-    return stepped[:, hw:hw + bw, :].reshape(wn, c)
-
-
-@partial(jax.jit, static_argnames=("k", "band", "interpret"))
-def multi_step_swar_banded(grid, k: int, band: int = 2048,
-                           interpret: bool | None = None):
-    """Cell-grid wrapper for multi_step_packed_banded: pack the whole
-    grid once, band in packed space (halos are whole words), unpack once.
-    Same drop-in contract as multi_step_swar, for grids past MAX_CELLS."""
-    r, c = grid.shape
-    if r % BITS or r % band:
-        raise ValueError(f"rows {r} need rows % {BITS} == 0 and band | rows")
-    out = multi_step_packed_banded(pack_rows(grid), k, band=band,
-                                   interpret=interpret)
-    return unpack_rows(out, dtype=grid.dtype)
-
-
-def multi_step_packed_chain(packed, k: int, interpret: bool | None = None,
-                            budget: int | None = None):
-    """k banded generations on a packed grid, chaining dispatches.
-
-    The one shared plan-and-chain entry point (sims/gol, app/benchmark,
-    parallel/gol_shard all route here): pick_plan chooses (band, kk),
-    lax.fori_loop chains the k // kk full dispatches IN-GRAPH (one jit,
-    no per-dispatch host round trip), and a single smaller dispatch on
-    the same band absorbs any remainder. Stays in packed space
-    throughout — pack/unpack is the caller's one-time cost, not a
-    per-dispatch one. Raises pick_plan's ValueError when no band fits."""
-    wn, c = packed.shape
-    band, kk = pick_plan(wn * BITS, c, k, budget=budget)
+def _launches(k: int, kk: int) -> list[int]:
+    """Generations per launch: full kk launches, then the remainder."""
     full, rem = divmod(int(k), kk)
-    if full:
-        packed = lax.fori_loop(
-            0, full,
-            lambda _, p: multi_step_packed_banded(p, kk, band=band,
-                                                  interpret=interpret),
-            packed)
-    if rem:
-        packed = multi_step_packed_banded(packed, rem, band=band,
-                                          interpret=interpret)
+    return [kk] * full + ([rem] if rem else [])
+
+
+def multi_step_packed_tiled(packed, k: int, plan: Plan):
+    """jnp twin of the CUDA kernel's tiling: the same halo loads, tile
+    edges that read as dead cells, and per-launch generation counts.
+    Bit-identical to multi_step_packed_xla for every valid plan."""
+    wn, cn = packed.shape
+    hw, hc = plan.hw, plan.hc
+    nby, nbx = wn // plan.bw, cn // plan.cw
+    rows = (jnp.arange(nby)[:, None] * plan.bw - hw
+            + jnp.arange(plan.bw + 2 * hw)[None, :]) % wn
+    cols = (jnp.arange(nbx)[:, None] * plan.cw - hc
+            + jnp.arange(plan.cw + 2 * hc)[None, :]) % cn
+    for g in _launches(k, plan.kk):
+        tiles = packed[rows[:, None, :, None], cols[None, :, None, :]]
+        tiles = jax.vmap(jax.vmap(
+            lambda t: lax.fori_loop(0, g, lambda _, x: _gen_bits_open(x), t)
+        ))(tiles)                                   # [nby, nbx, th, tw]
+        inner = tiles[:, :, hw:hw + plan.bw, hc:hc + plan.cw]
+        packed = inner.transpose(0, 2, 1, 3).reshape(wn, cn)
     return packed
 
 
-@partial(jax.jit, static_argnames=("k", "interpret"))
-def multi_step_swar_auto(grid, k: int, interpret: bool | None = None):
-    """Drop-in k-generation step for ANY 32-row-aligned grid size: the
-    single-dispatch SWAR kernel under MAX_CELLS, the banded chain past
-    it. Raises when no banded plan fits (shard rows instead)."""
+@partial(jax.jit, static_argnames=("k", "platform"))
+def multi_step_packed(packed, k: int, platform: str | None = None):
+    """k generations on a packed [W, C] uint32 grid (k static).
+
+    On a GPU the CUDA kernel runs the plan pick_plan chooses; on the CPU
+    the plain jnp form runs. `platform` defaults to the default backend;
+    mesh code passes its devices' platform."""
+    from ..core.platform import kernel_mode
+
+    k = int(k)
+    if k == 0:
+        return packed
+    if kernel_mode(platform) == "interpret":
+        return multi_step_packed_xla(packed, k)
+    from . import cuda_ffi
+
+    wn, cn = packed.shape
+    return cuda_ffi.gol_swar(packed, k, pick_plan(wn, cn, k))
+
+
+@partial(jax.jit, static_argnames=("k", "platform"))
+def multi_step_swar(grid, k: int, platform: str | None = None):
+    """Drop-in multi_step: [R, C] cell grid -> k generations -> same shape.
+
+    Packs rows to bits, steps, unpacks. Pack/unpack is two cheap vector
+    passes per call (not per generation). Rows must be a multiple of 32.
+    """
     r, c = grid.shape
     if r % BITS:
-        raise ValueError(f"rows {r} not a multiple of {BITS}")
-    if r * c <= MAX_CELLS:
-        return multi_step_swar(grid, jnp.int32(k), interpret=interpret)
-    out = multi_step_packed_chain(pack_rows(grid), k, interpret=interpret)
+        raise ValueError(
+            f"{r}x{c} grid not supported by the SWAR kernel (rows % {BITS} "
+            "!= 0); use gol_stencil.multi_step")
+    out = multi_step_packed(pack_rows(grid), k, platform=platform)
     return unpack_rows(out, dtype=grid.dtype)

@@ -4,17 +4,16 @@ Reference semantics: gol_step, rs-src/gol.rs:31-170 — 8-neighbor sum with
 torus wrap, rule ``alive_nb == 3 || (alive && alive_nb == 2)`` (gol.rs:79).
 
 The reference splits the grid into border strips + per-thread interior
-strips; on TPU the whole grid is one vector op. Three backends:
+strips; here the whole grid is one array op. Two plain-XLA forms:
 
   * step_roll   — 8 circular shifts + rule; the readable oracle.
-  * step_mxu    — the 3x3 neighbor sum as two circulant matmuls on the MXU:
-                  nb = A @ G @ A^T - G, A = circulant(1,1,1). The stencil's
-                  FLOPs ride the systolic array instead of the VPU.
+  * step_mxu    — the 3x3 neighbor sum as two circulant matmuls:
+                  nb = A @ G @ A^T - G, A = circulant(1,1,1).
   * multi_step  — K generations fused in one dispatch (lax.fori_loop under
                   jit), the analog of the reference's free-running sim worker
                   thread (hs-src/RustGoLExperiment.hs:96-108).
-  * multi_step_pallas — same loop inside a single Pallas kernel: the grid
-                  never leaves VMEM between generations.
+
+The production path is the bit-packed form in ops/gol_bits.py.
 """
 
 from __future__ import annotations
@@ -24,8 +23,6 @@ from functools import lru_cache, partial
 import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 GRID_WDH = 256  # reference gol.rs:8
 
@@ -65,11 +62,11 @@ def _circulant_111(n: int, dtype_name: str):
 
 
 def step_mxu(grid, dtype=jnp.float32):
-    """One generation with the neighbor sum as two MXU matmuls.
+    """One generation with the neighbor sum as two matmuls.
 
     A @ G sums each cell's vertical 3-neighborhood; (A @ G) @ A^T then sums
     horizontally — the full 3x3 box. Subtract G to get the 8-neighbor count.
-    Counts are <= 9 so bf16 (8 mantissa bits) is exact.
+    Counts are <= 9, so every precision is exact, bf16 and TF32 included.
     """
     n = grid.shape[0]
     assert grid.shape == (n, n)
@@ -86,79 +83,3 @@ def multi_step(grid, k: int, backend: str = "mxu"):
     """Advance k generations in one dispatch."""
     step = step_mxu if backend == "mxu" else step_roll
     return lax.fori_loop(0, k, lambda i, g: step(g), grid)
-
-
-# ---------------------------------------------------------------------------
-# Fused multi-generation Pallas kernel — grid stays in VMEM for all K steps.
-# ---------------------------------------------------------------------------
-
-
-_UNROLL = 16
-
-
-def _gol_pallas_kernel(steps_ref, grid_ref, out_ref, *, rows_n: int,
-                       cols_n: int):
-    """Fused K generations, grid VMEM-resident, torus via pltpu.roll.
-
-    The 8-neighbor sum is two separable passes of circular shifts on the
-    VPU — at a 256-wide grid this beats the circulant-matmul form ~2x (the
-    MXU is underfilled at 256 and the matmul pair costs ~3 us; rolls run
-    the whole generation in ~3.3 us with 16x loop unrolling). pltpu.roll
-    only takes non-negative shifts, hence n-1 for the -1 direction.
-
-    Rectangular [rows_n, cols_n] blocks are supported so the multi-chip
-    row-sharded path (parallel/gol_shard.py) can run this same kernel on
-    k-halo-padded local blocks: the y-torus wrap is then WRONG at the
-    block edges, but its contamination travels one row per generation and
-    the caller pads k rows per side, so the interior stays exact.
-    """
-    steps = steps_ref[0]
-
-    def gen(g):
-        rows = g + pltpu.roll(g, 1, 0) + pltpu.roll(g, rows_n - 1, 0)
-        nb = rows + pltpu.roll(rows, 1, 1) + pltpu.roll(rows, cols_n - 1, 1) - g
-        alive = (nb == 3.0) | ((g == 1.0) & (nb == 2.0))
-        return alive.astype(jnp.float32)
-
-    def body_u(_, g):
-        # Amortize the dynamic-loop overhead (several us per trip)
-        for _ in range(_UNROLL):
-            g = gen(g)
-        return g
-
-    g = grid_ref[:].astype(jnp.float32)
-    g = lax.fori_loop(0, steps // _UNROLL, body_u, g)
-    out_ref[:] = lax.fori_loop(0, steps % _UNROLL, lambda _, x: gen(x), g)
-
-
-@partial(jax.jit, static_argnames=("interpret",))
-def multi_step_pallas(grid, k, interpret: bool | None = None):
-    """k generations in one Pallas dispatch; k is a traced scalar (no recompile).
-
-    VMEM must hold the grid and shift temporaries — fine up to ~1024x1024;
-    larger grids should use multi_step (XLA pipelines HBM itself).
-    """
-    from functools import partial as _partial
-
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    rows_n, cols_n = grid.shape
-    # Measured scoped-VMEM footprint: ~19.4 B/cell (grid f32 + roll
-    # temporaries) against v5e's 16 MB scoped limit — a 1024x1024 grid
-    # needs 20.4 MB and fails AOT compile. Guard with margin.
-    if rows_n * cols_n > 640 * 1024:
-        raise ValueError(f"{rows_n}x{cols_n} grid exceeds the VMEM-resident "
-                         "kernel (~19.4 B/cell vs the 16 MB scoped limit); "
-                         "use multi_step or shard rows (parallel/gol_shard)")
-    out = pl.pallas_call(
-        _partial(_gol_pallas_kernel, rows_n=rows_n, cols_n=cols_n),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(1,),
-            in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
-            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-        ),
-        out_shape=jax.ShapeDtypeStruct((rows_n, cols_n), jnp.float32),
-        interpret=interpret,
-    )(jnp.asarray([k], dtype=jnp.int32), grid.astype(jnp.float32))
-    return out.astype(grid.dtype)

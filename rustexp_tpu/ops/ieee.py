@@ -12,19 +12,17 @@ rounded to a real f32 before the add — exactly the reference's semantics.
 
 ``seal(x, z)`` costs one xor and two (free, layout-preserving) bitcasts per
 protected product; ``z`` must come from ``seal_zero`` on any traced value.
-The helpers work inside Pallas kernel bodies too (interpret mode executes
-them through the same XLA:CPU codegen; on real TPU hardware Mosaic's
-conservative float handling makes them identity ops either way).
+The helpers work inside Pallas kernel bodies too: interpret mode executes
+them through the same XLA:CPU codegen, and the compiled Triton kernel keeps
+the integer round trip, so its products round before the add as well.
 
 Shared by the vertex transform (raster/pipeline.py), the deferred XLA
-shading path, and the bins/flat-queue Pallas kernels so all backends round
-attribute interpolation exactly like the reference's per-fragment scalar
-code (rasterizer.rs:1695-1744).
+shading path, and the flat-queue kernel so all backends round attribute
+interpolation exactly like the reference's per-fragment scalar code
+(rasterizer.rs:1695-1744).
 """
 
 from __future__ import annotations
-
-import os
 
 import jax.numpy as jnp
 from jax import lax
@@ -33,28 +31,13 @@ _STRICT: bool | None = None
 
 
 def strict_default() -> bool:
-    """Whether per-op f32 sealing is on: CPU (and any non-TPU backend) yes,
-    real TPU no.
-
-    The oracle parity chain (tools/ref_oracle <-> goldens <-> engine) runs
-    entirely on CPU, where LLVM's FMA contraction would otherwise break the
-    reference's per-op rounding; there the seals are mandatory and their
-    cost irrelevant. On the TPU build the seals buy nothing verifiable and
-    measurably cost ~4-9% of a raster frame (BASELINE.md round-4 notes) —
-    the compiled-TPU frames may differ from the CPU/reference frames in
-    last-ulp rounding, the same class of difference as building the
-    reference itself with -ffp-contract=fast. Override with
-    RUSTEXP_STRICT_IEEE=0/1.
-    """
+    """Whether per-op f32 sealing is on (core.platform.strict_ieee_default,
+    read once per process)."""
     global _STRICT
     if _STRICT is None:
-        env = os.environ.get("RUSTEXP_STRICT_IEEE")
-        if env is not None:
-            _STRICT = env not in ("0", "false", "")
-        else:
-            import jax
+        from ..core.platform import strict_ieee_default
 
-            _STRICT = jax.default_backend() != "tpu"
+        _STRICT = strict_ieee_default()
     return _STRICT
 
 
@@ -73,12 +56,9 @@ def seal(x, z):
     following add/sub by routing the bits through integer ops (identity at
     runtime, since z is always 0).
 
-    ``z=None`` disables the seal (returns x): the in-kernel interpolation
-    passes None when compiling for real TPU hardware — the parity chain
-    (oracle <-> goldens <-> engine) is verified on CPU, and the measured
-    cost of in-kernel seals on v5e is ~4-9% of a frame for no verifiable
-    gain there (Mosaic's FMA choices are a compile-time trait of the TPU
-    build, exactly like recompiling the reference with -ffp-contract=fast).
+    ``z=None`` disables the seal (returns x): relaxed mode
+    (RUSTEXP_STRICT_IEEE=0), where the compiler may contract products into
+    FMAs, like building the reference with -ffp-contract=fast.
     """
     if z is None:
         return x

@@ -1,11 +1,11 @@
 """Block Barnes-Hut: the production approximate N-body step.
 
-TPU-native re-design of the reference's Barnes-Hut quadtree
+Array-native re-design of the reference's Barnes-Hut quadtree
 (nbody.rs:186-480). The reference builds a pointer quadtree and, per
 particle, opens nodes until ``s / d < theta`` (node width over distance,
 nbody.rs:342-346); opened subtrees bottom out in exact pair forces.
-Pointer trees and per-particle recursion are hostile to the TPU, so the
-same accuracy-vs-work dial is realized on a flat, static-shape structure:
+Pointer trees and per-particle recursion are hostile to an accelerator,
+so the same accuracy-vs-work dial is realized on a flat, static-shape structure:
 
   1. sort particles by Morton (Z-order) code — spatial locality becomes
      array locality, and EQUAL-COUNT blocks of the sorted array are
@@ -21,7 +21,7 @@ same accuracy-vs-work dial is realized on a flat, static-shape structure:
      than small dense ones at the same distance, and a touching block
      (d = 0) can never land in the far field;
   4. FAR FIELD (approximate): every other block contributes its monopole
-     in one dense [N, B] sweep — MXU/VPU-friendly, no recursion.
+     in one dense [N, B] sweep — no recursion.
 
 theta plays its reference role through K(theta) = ceil(19 / theta^2),
 matching Barnes-Hut's ~1/theta^2 work scaling in 2-D; theta == 0 must be
@@ -34,12 +34,12 @@ theta=0.85, N=131,072 stable orbits, block=256, ground truth = oracle
 brute force, relative force error is
 
     reference quadtree: p50 0.37%  p90 0.92%  p99 2.6%
-    this kernel (K=27): p50 0.21%  p90 0.63%  p99 2.0%   (86 steps/s)
-    (old d-ranked K=9:  p50 1.1%   p90 6.0%   p99 31%    125 steps/s)
+    this kernel (K=27): p50 0.21%  p90 0.63%  p99 2.0%
+    (old d-ranked K=9:  p50 1.1%   p90 6.0%   p99 31%)
 
-i.e. at matched theta this kernel is now strictly MORE accurate than
-the reference's own Barnes-Hut while beating the 60 steps/s north star
-1.4x (tests/test_ref_oracle.py::test_oracle_bh_accuracy_class).
+i.e. at matched theta this kernel is strictly MORE accurate than the
+reference's own Barnes-Hut
+(tests/test_ref_oracle.py::test_oracle_bh_accuracy_class).
 
 Force law and integration match the reference exactly: unnormalized
 softened ``f = m1*m2 / (d^2 + EPS)`` (nbody.rs:164-184), explicit Euler
@@ -72,19 +72,6 @@ def _morton16(ix, iy):
     return spread(ix) | (spread(iy) << 1)
 
 
-# Route power-of-two sorts through the Pallas bitonic network
-# (ops/sort_bitonic.py). Bit-identical to the argsort path
-# (tests/test_nbody.py::test_morton_sort_bitonic_parity).
-# VALIDATED ON HARDWARE (v5e, 2026-08-18, tools/validate_bitonic.py,
-# N=131,072): standalone sort+carry 16.01 -> 9.37 ms (1.71x), bit-exact.
-# Per UNFUSED dispatch the step only moves 17.29 -> 16.95 ms, but inside
-# the scan-fused production bench (app/benchmark.bench_nbody, K steps per
-# dispatch) the flip is worth 86.2 -> 124.0 steps/s (+44%): the fused
-# argsort path serializes its 5 permutation gathers against the force
-# phase, while the bitonic network's payload carry pipelines cleanly.
-USE_BITONIC_SORT = True
-
-
 def morton_codes(px, py, x1, x2, y1, y2, bits: int = 15):
     """Z-order codes for positions against an EXPLICIT bounding box.
 
@@ -98,30 +85,17 @@ def morton_codes(px, py, x1, x2, y1, y2, bits: int = 15):
     return _morton16(ix.astype(jnp.int32), iy.astype(jnp.int32))
 
 
-def morton_sort(px, py, m, vx=None, vy=None, bits: int = 15,
-                interpret: bool | None = None,
-                use_bitonic: bool | None = None):
+def morton_sort(px, py, m, vx=None, vy=None, bits: int = 15):
     """Sort the particle set by Z-order code; returns permuted arrays.
 
-    Power-of-two particle counts ride the Pallas bitonic network
-    (ops/sort_bitonic.py) with the payload arrays carried THROUGH the
-    network instead of XLA's argsort + 5 permutation gathers (3.35 ms
-    of the 11.4 ms BH step at N=131,072), and bit-identical to it (the
-    network sorts the lexicographic (code, position) pair, i.e. stable
-    order). Other sizes fall back to stable argsort."""
+    A stable argsort of the codes, then one gather per array: inside the
+    scanned BH step this beats one `lax.sort` carrying the payloads as
+    extra operands (PERF.md)."""
     x1, x2 = jnp.min(px), jnp.max(px)
     y1, y2 = jnp.min(py), jnp.max(py)
     code = morton_codes(px, py, x1, x2, y1, y2, bits)
     vals = [px, py, m] + ([vx, vy] if vx is not None else [])
-    n = px.shape[0]
-    if use_bitonic is None:
-        use_bitonic = USE_BITONIC_SORT
-    if use_bitonic and n >= 256 and (n & (n - 1)) == 0:
-        from .sort_bitonic import sort_kv
-
-        _, out = sort_kv(code, vals, interpret=interpret)
-        return out
-    order = jnp.argsort(code)
+    order = jnp.argsort(code, stable=True)
     return [v[order] for v in vals]
 
 

@@ -11,11 +11,11 @@ explicit-Euler integration v += dt*f/m; p += dt*v (nbody.rs:150-161).
 
 The reference's brute force is a serial O(N^2) double loop; the threaded
 Barnes-Hut path fans particle slices out to threads over a shared quadtree
-(nbody.rs:424-478). TPU-native equivalents:
+(nbody.rs:424-478). Array-native equivalents:
 
   * forces_dense    — one [N, N] broadcast; oracle for small N.
   * forces_blocked  — lax.scan over target blocks, inner scan over source
-                      blocks: O(N^2) FLOPs, O(B^2) memory; VPU-resident.
+                      blocks: O(N^2) FLOPs, O(B^2) memory.
   * block Barnes-Hut — see nbody_bh.py (the production approximate path).
 """
 

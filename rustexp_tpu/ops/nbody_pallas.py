@@ -1,23 +1,14 @@
-"""Brute-force N-body as a Pallas TPU kernel (the hot benchmark path).
+"""Brute-force N-body forces as a Pallas kernel (Triton route).
 
 Math identical to nbody_forces (reference nbody.rs:164-184):
 f_vec(i<-j) = m_i m_j (p_j - p_i) / (d^2 + EPS), explicit Euler.
 
-TPU mapping (VPU-resident — thin matmuls would waste the MXU at 1/128
-utilization, and bf16 MXU passes destroy close-pair displacements):
-
-  * sources live as COLUMN vectors [S, 1] (host passes [N, 1] copies), so
-    dx = xs_col - xt_row broadcasts into the pairwise [S, T] tile with no
-    relayout and no matmul;
-  * per-pair force rm*dx is formed before any reduction — the self-pair is
-    exactly zero (dx == 0, matching the reference's i != j skip
-    algebraically), and no 1/EPS-scale terms ever pollute an accumulator;
-  * each source chunk reduces immediately into the revisited [1, T] output
-    block (no [S, T] accumulator), keeping VMEM free for large tiles — the
-    grid-step count, not the VPU, was the bottleneck at small tiles.
-
-Grid = (target_tiles, source_chunks), output blocks revisited along the
-source axis; ~10 VPU ops per particle pair.
+One program per tile of T_TILE targets, looping over the sources in
+chunks of S_CHUNK with the two force accumulators in registers: each
+chunk forms its [S, T] pair tile, reduces it over the sources at once,
+and adds the result to the accumulators. The self-pair is exactly zero
+(dx == 0, the reference's i != j skip algebraically), so no mask is
+needed. The target mass multiplies once at the end.
 """
 
 from __future__ import annotations
@@ -26,92 +17,78 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltr
 
 from .nbody_forces import EPS
 
-T_TILE = 1024  # targets per grid step (lanes; measured best: 59.4
-# ms/force at 131k vs 78 ms at 512 — fewer grid steps, same VPU work)
+T_TILE = 128   # targets per program
+S_CHUNK = 32   # sources per loop step: a [32, 128] pair tile per step
+NUM_WARPS = 4
 
 
-def _kernel(xs_ref, ys_ref, ms_ref, xt_ref, yt_ref, fx_ref, fy_ref,
-            *, approx_recip):
-    j = pl.program_id(1)
-
-    @pl.when(j == 0)
-    def _init():
-        fx_ref[:] = jnp.zeros_like(fx_ref)
-        fy_ref[:] = jnp.zeros_like(fy_ref)
-
-    xs = xs_ref[:]          # [S, 1] source columns
-    ys = ys_ref[:]
-    ms = ms_ref[:]
-    xt = xt_ref[:]          # [1, T] target rows
-    yt = yt_ref[:]
-
-    dx = xs - xt            # [S, T]
-    dy = ys - yt
-    d2 = dx * dx + dy * dy + EPS
-    rm = pl.reciprocal(d2, approx=approx_recip) * ms
-    # Reduce over the source chunk immediately (one extra add per pair)
-    # instead of holding an [S, T] accumulator: frees VMEM for bigger tiles
-    # and keeps the output block as the only revisited state.
-    fx_ref[:] += jnp.sum(rm * dx, axis=0, keepdims=True)
-    fy_ref[:] += jnp.sum(rm * dy, axis=0, keepdims=True)
+def supported(n: int) -> bool:
+    """The kernel needs N to be a power of two of at least T_TILE (every
+    block shape on the Triton route is a power of two)."""
+    return n >= T_TILE and n & (n - 1) == 0
 
 
-@partial(jax.jit, static_argnums=(3, 4, 5))
-def forces_pallas(px, py, m, src_chunk: int = 1024,
-                  approx_recip: bool = False, interpret: bool | None = None):
-    """All-pairs forces. N must be a multiple of max(T_TILE, src_chunk).
+def _kernel(xs_ref, ys_ref, ms_ref, xt_ref, yt_ref, fx_ref, fy_ref, *,
+            n: int, s_chunk: int):
+    xt = xt_ref[...]        # [T] targets
+    yt = yt_ref[...]
 
-    Returns (fx, fy) — full reference-law forces including the m_i factor.
-    """
+    def body(j, acc):
+        fx, fy = acc
+        src = pl.ds(j * s_chunk, s_chunk)
+        xs = xs_ref[src]    # [S] sources
+        ys = ys_ref[src]
+        ms = ms_ref[src]
+        dx = xs[:, None] - xt[None, :]          # [S, T]
+        dy = ys[:, None] - yt[None, :]
+        r = ms[:, None] / (dx * dx + dy * dy + EPS)
+        return fx + jnp.sum(r * dx, axis=0), fy + jnp.sum(r * dy, axis=0)
+
+    zero = jnp.zeros(xt.shape, jnp.float32)
+    fx, fy = lax.fori_loop(0, n // s_chunk, body, (zero, zero))
+    fx_ref[...] = fx
+    fy_ref[...] = fy
+
+
+@partial(jax.jit, static_argnames=("interpret",))
+def forces_pallas(px, py, m, interpret: bool | None = None):
+    """All-pairs forces (fx, fy) with the reference's m_i m_j convention.
+
+    `interpret=None` asks core.platform.kernel_mode (compiled on a GPU,
+    the Pallas interpreter on the CPU). N must satisfy `supported`."""
+    from ..core.platform import use_interpret
+
     n = px.shape[0]
-    assert n % T_TILE == 0 and n % src_chunk == 0
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-
-    xs = px.reshape(n, 1)
-    ys = py.reshape(n, 1)
-    ms = m.reshape(n, 1)
-    xt = px.reshape(1, n)
-    yt = py.reshape(1, n)
-
-    grid = (n // T_TILE, n // src_chunk)
-    src = lambda i, j: (j, 0)
-    tgt = lambda i, j: (0, i)
-
+    if not supported(n):
+        raise ValueError(f"N={n} is not a power of two >= {T_TILE}")
+    whole = pl.no_block_spec
+    tgt = pl.BlockSpec((T_TILE,), lambda i: (i,))
     fx, fy = pl.pallas_call(
-        partial(_kernel, approx_recip=approx_recip),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((src_chunk, 1), src, memory_space=pltpu.VMEM),
-            pl.BlockSpec((src_chunk, 1), src, memory_space=pltpu.VMEM),
-            pl.BlockSpec((src_chunk, 1), src, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, T_TILE), tgt, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, T_TILE), tgt, memory_space=pltpu.VMEM),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, T_TILE), tgt, memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, T_TILE), tgt, memory_space=pltpu.VMEM),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((1, n), jnp.float32),
-            jax.ShapeDtypeStruct((1, n), jnp.float32),
-        ),
-        interpret=interpret,
-    )(xs, ys, ms, xt, yt)
-
-    return fx.reshape(n) * m, fy.reshape(n) * m
+        partial(_kernel, n=n, s_chunk=S_CHUNK),
+        grid=(n // T_TILE,),
+        in_specs=[whole, whole, whole, tgt, tgt],
+        out_specs=(tgt, tgt),
+        out_shape=(jax.ShapeDtypeStruct((n,), jnp.float32),
+                   jax.ShapeDtypeStruct((n,), jnp.float32)),
+        backend="triton",
+        compiler_params=pltr.CompilerParams(num_warps=NUM_WARPS,
+                                            num_stages=2),
+        interpret=use_interpret(interpret),
+        name="nbody_forces",
+    )(px, py, m, px, py)
+    return fx * m, fy * m
 
 
-@partial(jax.jit, static_argnums=(5, 6))
-def step_brute_pallas(px, py, vx, vy, m, src_chunk: int = 1024,
-                      approx_recip: bool = False, dt: float = 0.01):
-    """Euler step on the Pallas force kernel (nbody.rs:150-161 semantics)."""
-    fx, fy = forces_pallas(px, py, m, src_chunk, approx_recip)
+@jax.jit
+def step_brute_pallas(px, py, vx, vy, m, dt=0.01):
+    """Euler step on the kernel's forces (nbody.rs:150-161 semantics)."""
+    fx, fy = forces_pallas(px, py, m)
     vx = vx + dt * fx / m
     vy = vy + dt * fy / m
     px = px + dt * vx

@@ -1,6 +1,6 @@
 """Per-triangle rasterization setup, batched over the whole mesh.
 
-TPU-native re-expression of the per-triangle preamble of the reference's
+Array-native re-expression of the per-triangle preamble of the reference's
 scanline rasterizer (rasterizer.rs:1545-1634): 28.4 fixed-point vertex snap,
 backface cull via the 2·area cross product, bottom-left fill-convention
 biases folded into the edge-function constants, and the pixel AABB — all
@@ -53,10 +53,8 @@ class TriSetup(NamedTuple):
 class TriSetupP(NamedTuple):
     """Planar (structure-of-1-D-arrays) triangle setup — the queue-path form.
 
-    Same quantities as TriSetup but every field is a lane-major [T] vector:
-    [T, 3]-shaped fields cost ~20x their useful bandwidth on TPU (the minor
-    dim pads to 128 lanes), which made the stacked form ~300 us/frame at
-    24k triangles; this form is ~15 us. A2/B2/C2 are omitted — the kernel
+    Same quantities as TriSetup but every field is a contiguous [T] vector
+    (no [T, 3]-shaped fields). A2/B2/C2 are omitted — the kernel
     derives e2 from the integer identity e0 + e1 + e2 = S = C0 + C1 + C2
     (x/y gradients of the three edges sum to zero).
     """
@@ -213,9 +211,8 @@ def setup_triangles(vp: jnp.ndarray, tris: jnp.ndarray, w: int, h: int,
 def setup_triangles_v(v0, v1, v2, w: int, h: int, y_shift=0) -> TriSetup:
     """Corner-array form: v0/v1/v2 f32 [T, 4] — no index gathers.
 
-    Preferred on TPU: gathers cost ~5-8 ns per index, so de-indexed corner
-    arrays (Scene.c_*) beat per-frame vp[tris[:, i]] gathers by ~0.5 ms on a
-    24k-triangle mesh.
+    De-indexed corner arrays (Scene.c_*) replace per-frame vp[tris[:, i]]
+    gathers.
 
     `y_shift`: integer post-snap frame translation (see
     setup_triangles_planar — float-side translation breaks trunc-to-zero

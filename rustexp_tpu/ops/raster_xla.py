@@ -2,9 +2,9 @@
 
 Sequentially folds every triangle over the full frame with masked
 ``jnp.where`` updates — semantically identical to the reference's serial
-Fill path (rasterizer.rs:2051-2073) and to the Pallas tile kernel
-(raster_pallas.py), which must match it exactly. O(T·H·W), so it serves as
-the correctness oracle for tests and the fallback for tiny meshes; the tile
+Fill path (rasterizer.rs:2051-2073) and to the flat-queue kernel
+(raster_queue.py), which must match it exactly. O(T·H·W), so it serves as
+the correctness oracle for tests and the path for tiny meshes; the queue
 kernel is the production path.
 
 Depth test is strict less-than against a z-buffer cleared to 1.0

@@ -1,9 +1,9 @@
 """Multi-chip N-body: target-sharded particles, all-gathered sources.
 
 The reference fans contiguous particle slices out to threads sharing the
-tree via Arc (nbody.rs:424-478). The TPU-native equivalent shards the
+tree via Arc (nbody.rs:424-478). The mesh equivalent shards the
 target-particle axis over the device mesh and all-gathers the (much smaller)
-source data over ICI — the same communication shape as sequence-parallel
+source data — the same communication shape as sequence-parallel
 attention's KV gather.
 """
 
@@ -31,10 +31,8 @@ def make_step(mesh: Mesh, axis="p"):
     as make_step_bh (ADVICE r3: the --devices loop fed a 4-tuple back
     into the 6-arg step and crashed on frame 2).
 
-    Particle count must divide the mesh size. `axis` may be a tuple like
-    ("dcn", "ici") for multi-host meshes: the source all-gather is then
-    hierarchical (XLA gathers the ICI ring first, one DCN exchange per
-    host after), targets never move.
+    Particle count must divide the mesh size. `axis` may also be a tuple
+    of mesh axes; collectives then treat their product as one axis.
     """
 
     @partial(
@@ -44,7 +42,7 @@ def make_step(mesh: Mesh, axis="p"):
         out_specs=(P(axis), P(axis), P(axis), P(axis), P(axis)),
     )
     def step(px, py, vx, vy, m, dt):
-        # gather all sources over ICI; targets stay local
+        # gather all sources; targets stay local
         sx = lax.all_gather(px, axis, tiled=True)
         sy = lax.all_gather(py, axis, tiled=True)
         sm = lax.all_gather(m, axis, tiled=True)
@@ -79,10 +77,9 @@ def make_step_bh(mesh: Mesh, axis="p", block: int = 256,
     Decomposition per step, per device:
       1. DISTRIBUTED Morton sort (parallel/sort_shard.py): codes are
          computed locally against a pmin/pmax-reduced global AABB, then
-         a hypercube bitonic compare-split sort leaves each device
+         a hypercube compare-split sort leaves each device
          holding its contiguous chunk of the globally sorted order —
-         per-device sort work drops ~1/D vs the replicated sort that
-         previously capped 8-device scaling at ~2.6x (Amdahl);
+         per-device sort work drops ~1/D vs the replicated sort;
       2. all-gather the SORTED positions + masses (the near-field block
          gathers index arbitrary global blocks) and replicate the cheap
          O(N) block aggregates + O(B^2) K-nearest AABB ranking;
@@ -129,12 +126,11 @@ def make_step_bh(mesh: Mesh, axis="p", block: int = 256,
         mesh=mesh,
         in_specs=(P(axis), P(axis), P(axis), P(axis), P(axis), P()),
         out_specs=(P(axis), P(axis), P(axis), P(axis), P(axis)),
-        # the Morton sort's Pallas path carries no varying-mesh-axes
-        # info on its outputs (same as gol_shard's kernels)
+        # the replicated-sort branch slices replicated arrays by the
+        # axis index, which the replication checker cannot follow
         check_rep=False,
     )
     def step(pxs, pys, vxs, vys, ms, dt):
-        interp = mesh.devices.flat[0].platform != "tpu"
         n_loc = pxs.shape[0]
         n = n_loc * n_dev
         B = n // block
@@ -157,7 +153,7 @@ def make_step_bh(mesh: Mesh, axis="p", block: int = 256,
         if distributed_sort:
             # 1. codes from the pmin/pmax global AABB (min/max are exact
             # in f32, so local codes == gathered-computation codes), then
-            # the hypercube bitonic sort: device d ends up holding the
+            # the hypercube compare-split sort: device d ends up holding the
             # d-th contiguous chunk of the global Morton order.
             x1 = lax.pmin(jnp.min(pxs), axis)
             x2 = lax.pmax(jnp.max(pxs), axis)
@@ -165,8 +161,7 @@ def make_step_bh(mesh: Mesh, axis="p", block: int = 256,
             y2 = lax.pmax(jnp.max(pys), axis)
             code = morton_codes(pxs, pys, x1, x2, y1, y2)
             _, _, (pxl, pyl, ml, vxl0, vyl0) = dist_sort_stable(
-                code, [pxs, pys, ms, vxs, vys], axis, n_dev,
-                interpret=interp)
+                code, [pxs, pys, ms, vxs, vys], axis, n_dev)
             # 2. gather SORTED positions/masses for the source blocks;
             # velocities stay local (only the local slice integrates)
             px = lax.all_gather(pxl, axis, tiled=True)
@@ -203,8 +198,7 @@ def make_step_bh(mesh: Mesh, axis="p", block: int = 256,
             vx = lax.all_gather(vxs, axis, tiled=True)
             vy = lax.all_gather(vys, axis, tiled=True)
             m = lax.all_gather(ms, axis, tiled=True)
-            px, py, m, vx, vy = morton_sort(px, py, m, vx, vy,
-                                            interpret=interp)
+            px, py, m, vx, vy = morton_sort(px, py, m, vx, vy)
 
         xb = px.reshape(B, block)
         yb = py.reshape(B, block)

@@ -1,24 +1,21 @@
 """Distributed stable sort over the device mesh (hypercube bitonic).
 
-The sharded Barnes-Hut step's scaling was capped by its REPLICATED
-Morton sort: every device gathered all N particles and sorted all N
-keys, so the sort (3.35 ms of the 11.4 ms step at N=131,072) never
-shrank with D — Amdahl held 8-device speedup to ~2.6x (BASELINE.md
-scaling model). This module shards the sort itself.
+A replicated Morton sort makes every device gather all N particles and
+sort all N keys, so the sort never shrinks with the device count D and
+caps the sharded Barnes-Hut step's scaling. This module shards the sort
+itself.
 
 Algorithm (classic hypercube bitonic sort with compare-split, the
 distributed-memory form of Batcher's network): each device holds one
 contiguous chunk of n_loc = N / D elements,
 
-  1. locally sorted once (Pallas bitonic network / XLA fallback), then
+  1. locally sorted once (`lax.sort` with the payloads as operands), then
   2. log D * (log D + 1) / 2 cross-device stages. A stage exchanges the
-     FULL chunk with the XOR-partner device over ICI (`lax.ppermute`),
-     keeps the elementwise min (or max) against the index-REVERSED
-     partner chunk — Batcher's bitonic split: for ascending length-n
-     arrays A and B, {min(A_i, B_{n-1-i})} is exactly the multiset of
-     the n smallest of A ∪ B — and restores local order with one
-     bitonic MERGE (each split half is bitonic, so the log n merge
-     network suffices, not a full log^2 n re-sort).
+     FULL chunk with the XOR-partner device (`lax.ppermute`), keeps the
+     elementwise min (or max) against the index-REVERSED partner chunk —
+     Batcher's bitonic split: for ascending length-n arrays A and B,
+     {min(A_i, B_{n-1-i})} is exactly the multiset of the n smallest of
+     A ∪ B — and restores local order with one local sort.
 
 After the last stage device d holds the d-th chunk of the global sorted
 order. All comparisons are on the lexicographic (key, global position)
@@ -27,12 +24,10 @@ gathered input would — the concatenated result is BIT-IDENTICAL to
 `jnp.argsort(key, stable=True)` applied to every array, which is the
 property the sharded BH step's single-device-parity contract needs.
 
-Cost model (per device, vs the replicated sort's N log^2 N):
-n_loc log^2 n_loc (local sort) + (log^2 D / 2)(n_loc log n_loc + wire),
-wire = full-chunk exchange per stage riding the same ICI links as the
-source all-gather. At N=131k / D=8 that is ~6.6x less sort work per
-device plus 6 x 0.4 MB of exchanges (~60 us at 45 GB/s) — see the
-BASELINE.md scaling-model update.
+Cost model (per device, vs the replicated sort of all N):
+one local sort of n_loc plus log D (log D + 1)/2 stages of (full-chunk
+exchange + local re-sort of n_loc), the exchanges riding the same links
+as the source all-gather.
 
 Reference analog: the reference rebuilds its quadtree serially every
 step on one thread (nbody.rs:410-417); here every chip pays 1/D-th of
@@ -44,33 +39,30 @@ from __future__ import annotations
 import jax.numpy as jnp
 from jax import lax
 
-from ..ops.sort_bitonic import _substage_table, merge_kv, sort_kv
+
+def _substage_table(n: int) -> tuple[list[int], list[int]]:
+    """(j, k) per compare-exchange substage of the n-element bitonic
+    network — here n is the device count, one substage per exchange."""
+    js, ks = [], []
+    k = 2
+    while k <= n:
+        j = k // 2
+        while j >= 1:
+            js.append(j)
+            ks.append(k)
+            j //= 2
+        k *= 2
+    return js, ks
 
 
-def _pallas_ok(n: int, use_bitonic: bool) -> bool:
-    return use_bitonic and n >= 256 and (n & (n - 1)) == 0
+def _local_sort(key, gidx, values):
+    """Sort by the lexicographic (key, global position) pair, payloads
+    carried as extra sort operands (no permutation gathers)."""
+    out = lax.sort((key, gidx, *values), num_keys=2)
+    return out[0], out[1], list(out[2:])
 
 
-def _local_sort(key, gidx, values, interpret, use_bitonic):
-    if _pallas_ok(key.shape[0], use_bitonic):
-        skey, out = sort_kv(key, [gidx] + values, interpret=interpret,
-                            idx=gidx)
-        return skey, out[0], out[1:]
-    order = jnp.lexsort((gidx, key))
-    return key[order], gidx[order], [v[order] for v in values]
-
-
-def _local_merge(key, gidx, values, interpret, use_bitonic):
-    if _pallas_ok(key.shape[0], use_bitonic):
-        skey, sidx, out = merge_kv(key, gidx, values, interpret=interpret)
-        return skey, sidx, out
-    order = jnp.lexsort((gidx, key))
-    return key[order], gidx[order], [v[order] for v in values]
-
-
-def dist_sort_stable(key, values, axis, n_dev: int, *,
-                     interpret: bool | None = None,
-                     use_bitonic: bool = True):
+def dist_sort_stable(key, values, axis, n_dev: int):
     """[call INSIDE shard_map] Distributed stable sort by i32 `key`.
 
     `key` and each of `values` are the device's local [n_loc] chunk of
@@ -90,8 +82,7 @@ def dist_sort_stable(key, values, axis, n_dev: int, *,
     n_loc = key.shape[0]
     dev = lax.axis_index(axis).astype(jnp.int32)
     gidx = dev * n_loc + jnp.arange(n_loc, dtype=jnp.int32)
-    key, gidx, values = _local_sort(key, gidx, values, interpret,
-                                    use_bitonic)
+    key, gidx, values = _local_sort(key, gidx, values)
     if n_dev == 1:
         return key, gidx, values
 
@@ -110,7 +101,7 @@ def dist_sort_stable(key, values, axis, n_dev: int, *,
         key = jnp.where(keep_own, key, pk)
         gidx = jnp.where(keep_own, gidx, pg)
         values = [jnp.where(keep_own, v, p) for v, p in zip(values, pv)]
-        return _local_merge(key, gidx, values, interpret, use_bitonic)
+        return _local_sort(key, gidx, values)
 
     if n_dev & (n_dev - 1) == 0:
         for j, k in zip(*_substage_table(n_dev)):

@@ -1,6 +1,6 @@
 """The frame pipeline: vertex transform → raster → deferred shade → pack.
 
-TPU-native replacement for the reference's ``rast_draw`` orchestrator
+Array-native replacement for the reference's ``rast_draw`` orchestrator
 (rasterizer.rs:1891-2206). Structural differences, by design:
 
   * Vertex processing is one batched matmul over all vertices (vs. chunked
@@ -50,9 +50,9 @@ class Scene(NamedTuple):
     """Device-resident scene inputs for one frame (a pytree).
 
     The c_* members are the DE-INDEXED triangle corners ([3T, ...], corner
-    j of triangle t at row 3t+j). Per-frame corner gathers (vp[tris[:, j]])
-    cost ~5-8 ns per index on TPU's scalar core; de-indexing once at scene
-    build turns the whole vertex pipeline into gather-free matmuls.
+    j of triangle t at row 3t+j): de-indexing once at scene build turns
+    the whole vertex pipeline into gather-free array ops instead of
+    per-frame corner gathers (vp[tris[:, j]]).
     """
 
     positions: jnp.ndarray  # f32 [V, 3] mesh-space
@@ -76,10 +76,7 @@ def make_scene(mesh, cm_set) -> Scene:
 
     The cp3/cn3/cc3 members are CORNER-MAJOR planar layouts (corner j,
     component k, triangle t): every per-triangle quantity downstream is a
-    lane-major [T] vector. The [N, 3]-shaped c_* forms pad their minor dim
-    to 128 lanes on TPU (~20x wasted bandwidth) and cost ~1 ms/frame at
-    24k triangles through transform+setup; the planar forms make the whole
-    geometry stage ~100 us.
+    contiguous [T] vector, with no [N, 3]-shaped intermediates.
     """
     ndim = mesh.normalize_dimensions()
     it33 = np.linalg.inv(ndim).T[:3, :3].astype(np.float32)
@@ -125,9 +122,8 @@ def make_scene(mesh, cm_set) -> Scene:
 # escape is to launder each product's bits through integer ops keyed by a
 # runtime-zero no compiler can constant-fold: the product must then be
 # rounded to a real f32 before the add, which is exactly the reference's
-# semantics. Costs two integer ops per protected product — immeasurable
-# next to rasterization; elementwise [4,T] rows instead of [4,4]x[4,T]
-# einsums is the same VPU work on TPU (the contraction axis is only 4).
+# semantics. Costs two integer ops per protected product; elementwise
+# [4,T] rows replace [4,4]x[4,T] einsums (the contraction axis is only 4).
 
 
 from ..ops.ieee import (  # noqa: E402  (placed with its explanatory comment)
@@ -264,7 +260,11 @@ def inv_world_to_vp(eye, w: int, h: int):
     inv_vpm = jnp.array(
         [[1.0 / wh, 0, 0, -1.0], [0, 1.0 / hh, 0, -1.0],
          [0, 0, 1.0, 0], [0, 0, 0, 1.0]], dtype=jnp.float32)
-    return inv_look @ inv_persp @ inv_vpm
+    # HIGHEST: the per-pixel world rays feed parity; a TF32 product would
+    # keep only ~3 decimal digits of the chain.
+    hi = lax.Precision.HIGHEST
+    return jnp.matmul(jnp.matmul(inv_look, inv_persp, precision=hi), inv_vpm,
+                      precision=hi)
 
 
 def transform_vertices(scene: Scene, eye, w: int, h: int):
@@ -370,8 +370,7 @@ def shade_gbuffer(
     """
     h, w = gb.tid.shape
     mask = gb.tid >= 0
-    # Flat 1-D indices: multi-dim advanced indexing takes XLA:TPU's slow
-    # gather path; flat single-index gathers are ~300x faster.
+    # Flat 1-D indices: one single-index gather per corner.
     t = jnp.maximum(gb.tid, 0).reshape(-1)
     i0, i1, i2 = scene.tris[:, 0][t], scene.tris[:, 1][t], scene.tris[:, 2][t]
     b = gb.b.reshape(-1, 3)
@@ -419,124 +418,21 @@ def shade_gbuffer(
     return jnp.where(mask, packed, bg_fb)
 
 
-def raster_and_shade_pallas(
-    scene: Scene, setup, vp, world, n_world, colors, eye, tick,
-    *, w: int, h: int, per_pixel: bool, shader_idx: int, bg_fb, cap=None,
-    spans=None, rows_cap=None,
-):
-    """Zero-gather Fill path: attributes interpolate inside the tile kernel.
+def queue_attr_channels(scene: Scene, iw, n_c, world_c, colors,
+                        per_pixel: bool, ray_world: bool = True):
+    """Planar per-triangle attribute channels for the queue kernel.
 
-    Per-pixel gathers cost ~100 ns/index on TPU's scalar core, so instead of
-    a (tri-id, barycentric) G-buffer + gather-based deferred pass, the Pallas
-    kernel interpolates 1/w, color (and world pos + normal when shading
-    per-pixel) as screen-space planes — the same interpolation the reference
-    runs per fragment (rasterizer.rs:1713-1744). Shading is then pure
-    elementwise VPU work.
-
-    Returns (fb, overflow): `overflow` is a traced bool scalar — True means
-    the static bin capacity/spans were exceeded and triangles were dropped.
+    Returns (extra, n2, n3): 3*(n2+n3) [T] channels in kernel order —
+    (base, d10, d20) for the n2 2-MAD channels (1/w and color), then the
+    (q*iw0, q*iw1, q*iw2) triples of the n3 3-weight channels (normals,
+    plus world positions when ray_world=False). `colors` is the
+    per-unique-vertex shaded colors in V mode, or None in per-pixel mode
+    (baked corner colors are static). Every product is sealed so the
+    (q*iw - base) chain rounds per-op like the reference's per-triangle
+    c10/c20 precompute (oracle.cpp:1242-1243).
     """
-    from ..ops.raster_pallas import (
-        attr_channels_2mad, attr_channels_3w, raster_attrs_pallas,
-    )
-
-    tris = scene.tris
-    i0, i1, i2 = tris[:, 0], tris[:, 1], tris[:, 2]
-    iw0, iw1, iw2 = vp[i0, 3], vp[i1, 3], vp[i2, 3]
-    ones = jnp.ones((tris.shape[0], 1), jnp.float32)
-
-    def cat2(ci):
-        return jnp.concatenate([ones, colors[ci]], axis=1)
-
-    f2 = attr_channels_2mad(iw0, iw1, iw2, cat2(i0), cat2(i1), cat2(i2))
-    n2, n3 = 4, 0
-    extra = f2
-    if per_pixel:
-        def cat3(ci):
-            return jnp.concatenate([world[ci], n_world[ci]], axis=1)
-
-        f3 = attr_channels_3w(iw0, iw1, iw2, cat3(i0), cat3(i1), cat3(i2))
-        extra = jnp.concatenate([f2, f3], axis=1)
-        n3 = 6
-
-    z, mask, lin, overflow = raster_attrs_pallas(setup, extra, n2, n3, h, w,
-                                                 cap=cap, spans=spans)
-
-    if per_pixel and rows_cap is not None:
-        # Compact the shade to occupied 128-wide row-blocks, exactly like
-        # the queue backend's _shade_compacted — for small meshes (Cube:
-        # 12 triangles, bins backend) the two full-frame cubemap gathers
-        # dominate the frame, and the kernel's own coverage mask bounds
-        # the rows that can need shading. rows_cap is a static shape; if a
-        # frame covers more row-blocks than it, the extras would silently
-        # keep the background, so that raises `overflow` (re-bin signal),
-        # same contract as the bin capacity itself.
-        from ..ops.raster_queue import SHADE_W
-
-        ntx_rb = w // SHADE_W
-        occ = mask.reshape(h * ntx_rb, SHADE_W).any(axis=1)     # [h*ntx]
-        rows = jnp.nonzero(occ, size=rows_cap,
-                           fill_value=h * ntx_rb)[0].astype(jnp.int32)
-        overflow = overflow | (jnp.count_nonzero(occ) > rows_cap)
-        fb = _shade_compacted(rows, scene, z, mask, lin, eye, tick,
-                              shader_idx, bg_fb, w, h, ray_world=False)
-        return fb, overflow
-
-    wr = 1.0 / lin[0]
-
-    def ch_last(ps):
-        return jnp.stack([q * wr for q in ps], axis=-1)
-
-    c = ch_last(lin[1:4])
-    if per_pixel:
-        p = ch_last(lin[4:7])
-        n = ch_last(lin[7:10])
-        out = sh.shader_fn(shader_idx)(p, n, c, eye, tick, scene.cm)
-    else:
-        out = c
-    packed = pack_abgr32_gamma_arith(out[..., 0], out[..., 1], out[..., 2])
-    return jnp.where(mask, packed, bg_fb), overflow
-
-
-def raster_and_shade_queue(
-    scene: Scene, queue, colors, eye, tick,
-    *, w: int, h: int, per_pixel: bool, shader_idx: int, bg_fb,
-    ray_world: bool = True, defer: bool = False,
-):
-    """Flat-queue Fill path (ops/raster_queue.py) — the round-2 fast path.
-
-    Uses the de-indexed corner arrays (Scene.c_*): triangle setup and
-    attribute channels are built without a single per-frame gather (except
-    one flat gather of per-vertex-shaded colors in V mode). Per-pixel world
-    positions are reconstructed from the interpolated viewport (x, y, z, w)
-    by the analytic inverse transform instead of interpolating three extra
-    planes (VERDICT r1 #2c); set ray_world=False to interpolate them exactly
-    like the reference (parity tests).
-
-    `colors` is the per-unique-vertex shaded colors in V mode, or None in
-    per-pixel mode (baked corner colors are static).
-
-    `defer=True` routes through the z/slot-only kernel + per-winner
-    re-evaluation (_shade_deferred) — bit-identical output, but MEASURED
-    SLOWER on v5e (KillerooP 3.0 ms vs 1.55 ms): the kernel itself drops
-    1067 -> 722 us (it is SMEM-scalar-read bound at ~1 ns/read, and the
-    z-race needs 17 reads/pair vs 38), but the per-pixel winner re-fetch
-    is a ~39-channel row gather at ~0.5 ns/element — ~2.3 ms at killeroo
-    coverage. Per-pixel gathers lose to per-pair vector select+stores by
-    ~1000x per element on this hardware; the flag is kept as the measured
-    record and because a sparsecore-bearing part would change the verdict.
-
-    Returns (fb, stale): `stale` means the cached queue no longer covers
-    this frame — rebuild it and re-render.
-    """
-    from ..ops.raster_queue import raster_attrs_queue, raster_zslot_queue
-    from ..ops.raster_setup import setup_triangles_planar
-
-    xs, ys, zs, iw, n_c, world_c = transform_corners_planar(scene, eye, w, h)
-    setup = setup_triangles_planar(xs, ys, zs, w, h)
     T = scene.tris.shape[0]
     one = jnp.ones((T,), jnp.float32)
-
     if per_pixel:
         cc = scene.cc3  # static baked corners, zero gathers
         crows = [cc[0], cc[1], cc[2]]         # [3, T] each
@@ -547,9 +443,6 @@ def raster_and_shade_queue(
     def base_d(j):
         return [one, crows[j][0], crows[j][1], crows[j][2]]
 
-    # attr_channels_2mad in planar form: (base, d10, d20) per channel.
-    # Every product is sealed so the (q*iw - base) chain rounds per-op like
-    # the reference's per-triangle c10/c20 precompute (oracle.cpp:1242-1243).
     zs_ = _seal_zero(iw)
     base = [_seal(q * iw[0], zs_) for q in base_d(0)]
     d10 = [_seal(q * iw[1], zs_) - b for q, b in zip(base_d(1), base)]
@@ -564,21 +457,45 @@ def raster_and_shade_queue(
             cat3 = [[world_c[j, k] for k in range(3)]
                     + [n_c[j, k] for k in range(3)] for j in range(3)]
             n3 = 6
-        # attr_channels_3w planar: (q*iw0, q*iw1, q*iw2) triples
         extra = extra + [_seal(q * iw[0], zs_) for q in cat3[0]] \
             + [_seal(q * iw[1], zs_) for q in cat3[1]] \
             + [_seal(q * iw[2], zs_) for q in cat3[2]]
+    return extra, n2, n3
 
-    if defer:
-        z, slot, rows_flat, stale = raster_zslot_queue(
-            queue, setup, tuple(extra), h, w)
-        fb = _shade_deferred(queue, scene, z, slot, rows_flat, n2, n3, eye,
-                             tick, shader_idx, bg_fb, w, h, per_pixel,
-                             ray_world)
-        return fb, stale
 
-    z, mask, lin, stale = raster_attrs_queue(queue, setup, tuple(extra),
-                                             n2, n3, h, w)
+def raster_and_shade_queue(
+    scene: Scene, queue, colors, eye, tick,
+    *, w: int, h: int, per_pixel: bool, shader_idx: int, bg_fb,
+    ray_world: bool = True, impl: str = "kernel",
+):
+    """Flat-queue Fill path (ops/raster_queue.py) — the production path.
+
+    Uses the de-indexed corner arrays (Scene.c_*): triangle setup and
+    attribute channels are built without a single per-frame gather (except
+    one flat gather of per-vertex-shaded colors in V mode). Per-pixel world
+    positions are reconstructed from the interpolated viewport (x, y, z, w)
+    by the analytic inverse transform instead of interpolating three extra
+    planes (VERDICT r1 #2c); set ray_world=False to interpolate them exactly
+    like the reference (parity tests).
+
+    `colors` is the per-unique-vertex shaded colors in V mode, or None in
+    per-pixel mode (baked corner colors are static).
+
+    `impl` picks the per-tile raster: "kernel" (the Pallas kernel) or
+    "xla" (its plain-XLA twin, raster_attrs_queue_xla) — same bits.
+
+    Returns (fb, stale): `stale` means the cached queue no longer covers
+    this frame — rebuild it and re-render.
+    """
+    from ..ops.raster_queue import raster_attrs_queue, raster_attrs_queue_xla
+    from ..ops.raster_setup import setup_triangles_planar
+
+    xs, ys, zs, iw, n_c, world_c = transform_corners_planar(scene, eye, w, h)
+    setup = setup_triangles_planar(xs, ys, zs, w, h)
+    extra, n2, n3 = queue_attr_channels(scene, iw, n_c, world_c, colors,
+                                        per_pixel, ray_world)
+    raster = raster_attrs_queue if impl == "kernel" else raster_attrs_queue_xla
+    z, mask, lin, stale = raster(queue, setup, tuple(extra), n2, n3, h, w)
     if per_pixel:
         fb = _shade_compacted(queue.rows, scene, z, mask, lin, eye, tick,
                               shader_idx, bg_fb, w, h, ray_world,
@@ -591,117 +508,19 @@ def raster_and_shade_queue(
     return jnp.where(mask, packed, bg_fb), stale
 
 
-def _shade_deferred(queue, scene: Scene, z, slot, rows_flat, n2: int, n3: int,
-                    eye, tick, shader_idx: int, bg_fb, w: int, h: int,
-                    per_pixel: bool, ray_world: bool):
-    """Deferred shading from (z, slot): re-evaluate the WINNING pair only.
-
-    The depth-race kernel (ops/raster_queue.raster_zslot_queue) stores no
-    attribute planes; this pass compacts (z, slot) to the occupied
-    row-blocks, gathers each pixel's winning-pair channel row with ONE
-    rows_flat[slot] gather, and re-evaluates edges -> barycentrics ->
-    attribute planes with exactly the kernel's formulas on exactly the
-    same integers — bit-identical output to the select+store path, at
-    one evaluation per PIXEL instead of one per PAIR (ROADMAP lever #1).
-    """
-    from ..ops.raster_queue import _F_CH, _I_CH
-
-    SHADE_W = int(queue.shade_w)  # static: the granularity rows was built at
-    ntx = w // SHADE_W
-    rows = queue.rows                                       # [Rc]
-    padr = rows >= h * ntx
-    rows_g = jnp.where(padr, 0, rows)
-
-    def comp(plane):
-        return plane.reshape(h * ntx, SHADE_W)[rows_g]      # [Rc, SHADE_W]
-
-    slotc = comp(slot)
-    maskc = slotc >= 0
-    sentinel = rows_flat.shape[0] - 1
-    sg = jnp.where(maskc, slotc, sentinel).reshape(-1)
-    px_rows = rows_flat[sg]                                 # [Rc*SW, CH]
-    Rc = rows_g.shape[0]
-
-    def fch(k):  # float channel k as [Rc, SHADE_W]
-        return px_rows[:, _I_CH + k].reshape(Rc, SHADE_W)
-
-    def ich(k):  # int channel k
-        return jax.lax.bitcast_convert_type(
-            px_rows[:, k].reshape(Rc, SHADE_W), jnp.int32)
-
-    # Pixel coordinates of the compacted rows (global frame space)
-    yc_i = (rows_g // ntx).astype(jnp.int32)[:, None]
-    xc_i = ((rows_g % ntx) * SHADE_W).astype(jnp.int32)[:, None] \
-        + jnp.arange(SHADE_W, dtype=jnp.int32)[None, :]
-    xf = xc_i << 4
-    yf = yc_i << 4
-
-    # Same integer edge math as the kernel (28.4 fixed point)
-    e0 = ich(0) * xf + ich(2) * yf + ich(4)
-    e1 = ich(1) * xf + ich(3) * yf + ich(5)
-    e2 = ich(6) - e0 - e1
-    inv_a2 = fch(6)
-    # Integer de-bias then ONE f32 rounding (rasterizer.rs:1695-1697);
-    # f channels 0..2 hold the f32-encoded integer de-bias {1, 2}.
-    b0 = (e0 - fch(0).astype(jnp.int32)).astype(jnp.float32) * inv_a2
-    b1 = (e1 - fch(1).astype(jnp.int32)).astype(jnp.float32) * inv_a2
-    b2 = (e2 - fch(2).astype(jnp.int32)).astype(jnp.float32) * inv_a2
-
-    lins = []
-    zz = _seal_zero(inv_a2)
-    off = _F_CH
-    for a in range(n2):
-        lins.append(_lerp_2mad(fch(off + a), fch(off + n2 + a),
-                               fch(off + 2 * n2 + a), b2, b0, zz))
-    off = _F_CH + 3 * n2
-    for a in range(n3):
-        lins.append(_lerp_3w(fch(off + a), fch(off + n3 + a),
-                             fch(off + 2 * n3 + a), b1, b2, b0, zz))
-
-    wrc = 1.0 / lins[0]
-    cc = jnp.stack([p_ * wrc for p_ in lins[1:4]], axis=-1)
-    if per_pixel:
-        if ray_world:
-            nc = jnp.stack([p_ * wrc for p_ in lins[4:7]], axis=-1)
-            zc = comp(z)
-            M = inv_world_to_vp(eye, w, h)
-            xcf = xc_i.astype(jnp.float32)
-            ycf = jnp.broadcast_to(yc_i.astype(jnp.float32), (Rc, SHADE_W))
-            pc = jnp.stack(
-                [wrc * (M[i, 0] * xcf + M[i, 1] * ycf + M[i, 2] * zc + M[i, 3])
-                 for i in range(3)], axis=-1)
-        else:
-            pc = jnp.stack([p_ * wrc for p_ in lins[4:7]], axis=-1)
-            nc = jnp.stack([p_ * wrc for p_ in lins[7:10]], axis=-1)
-        out = sh.shader_fn(shader_idx)(pc, nc, cc, eye, tick, scene.cm)
-    else:
-        out = cc  # vertices were pre-shaded; colors only interpolate
-    packed = pack_abgr32_gamma_arith(out[..., 0], out[..., 1], out[..., 2])
-
-    bgv = bg_fb.reshape(h * ntx, SHADE_W)
-    merged = jnp.where(maskc, packed, bgv[rows_g])
-    rows_s = jnp.where(padr, h * ntx, rows)  # pads scatter out of bounds
-    # Same load-bearing barrier as _shade_compacted: keep the scatter out
-    # of the gather+select fusion (XLA:TPU miscompile, tested).
-    merged = jax.lax.optimization_barrier(merged)
-    return bgv.at[rows_s].set(merged, mode="drop").reshape(h, w)
-
-
 def _shade_compacted(rows, scene: Scene, z, mask, lin, eye, tick,
                      shader_idx: int, bg_fb, w: int, h: int, ray_world: bool,
                      y0=0, full_h: int | None = None, y_rows=None,
                      block_w: int | None = None):
     """Deferred per-pixel shading over OCCUPIED row-blocks only.
 
-    The per-pixel cubemap lookups are row gathers at ~2.6 ns/index — the
-    single largest cost of a P frame when run over all w*h pixels. Pixels
-    outside the occupied row-block list `rows` (int32 [Rc], entries >=
-    h*ntx are padding; the queue backend passes its build-frozen
-    pair-AABB list, the bins backend a mask-derived per-frame list) can
-    have no coverage, so the planes are compacted to [r_cap, tile_w] via
-    a row gather (~1-2k indices), shaded there, and scattered back over
-    the background. At killeroo only ~25% of row-blocks are occupied:
-    the gathers, shader math, and gamma pack all shrink accordingly.
+    The per-pixel cubemap lookups are gathers, the largest cost of a P
+    frame when run over all w*h pixels. Pixels outside the occupied
+    row-block list `rows` (int32 [Rc], entries >= h*ntx are padding; the
+    queue passes its build-frozen pair-AABB list) can have no coverage,
+    so the planes are compacted to [r_cap, block_w] via a row gather,
+    shaded there, and scattered back over the background: the gathers,
+    shader math and gamma pack shrink with the occupied share.
     (The reference never shades uncovered pixels either — its shader
     call sits inside the depth-test branch, rasterizer.rs:1722-1744.)
 
@@ -717,10 +536,8 @@ def _shade_compacted(rows, scene: Scene, z, mask, lin, eye, tick,
     `block_w` (round 5, default raster_queue.SHADE_W) is the compaction
     granularity and must match what the rows list was built at: entries
     of `rows` index blocks of block_w pixels, id = (y*w + x0) / block_w.
-    Narrower blocks skip uncovered x-spans inside occupied rows
-    (silhouette scenes: TorusKnotP covers 58% of the frame at 32-px
-    blocks vs 76% at 128) at the cost of more gather/scatter indices;
-    64 is the measured sweet spot (see raster_queue.SHADE_W).
+    Narrower blocks skip uncovered x-spans inside occupied rows at the
+    cost of more gather/scatter indices (see raster_queue.SHADE_W).
     """
     from ..ops.raster_queue import SHADE_W
 
@@ -758,11 +575,6 @@ def _shade_compacted(rows, scene: Scene, z, mask, lin, eye, tick,
     bgv = bg_fb.reshape(h * ntx, block_w)
     merged = jnp.where(maskc, packed, bgv[rows_g])
     rows_s = jnp.where(padr, h * ntx, rows)  # pads scatter out of bounds
-    # The barrier is load-bearing: XLA:TPU miscompiles the fusion of the
-    # compaction row-gathers + select + this scatter (whole occupied tiles
-    # came back black under jit; each op alone and the barriered form are
-    # correct). Keep the scatter out of the gather fusion.
-    merged = jax.lax.optimization_barrier(merged)
     return bgv.at[rows_s].set(merged, mode="drop").reshape(h, w)
 
 
@@ -860,64 +672,6 @@ def overlay_cross(fb, cross, xorg: int = 10, yorg: int = 10):
 
 
 @partial(jax.jit, static_argnames=("w", "h"))
-def _max_bin_count_jit(scene: Scene, eye, w: int, h: int):
-    from ..ops.raster_pallas import max_bin_count
-
-    vp, _, _ = transform_vertices(scene, eye, w, h)
-    setup = setup_triangles(vp, scene.tris, w, h)
-    return max_bin_count(setup, h, w)
-
-
-@partial(jax.jit, static_argnames=("w", "h"))
-def _bin_stats_jit(scene: Scene, eye, w: int, h: int):
-    from ..ops.raster_pallas import max_bin_count, max_spans
-    from ..ops.raster_queue import SHADE_W
-
-    vp, _, _ = transform_vertices(scene, eye, w, h)
-    setup = setup_triangles(vp, scene.tris, w, h)
-    sx, sy = max_spans(setup, h, w)
-
-    # Upper bound on occupied SHADE_W-wide shade blocks: a block (y, tx)
-    # can hold coverage only if some valid triangle's clipped AABB
-    # intersects it. One [h,T]x[T,ntx] matmul (MXU) beats any scatter.
-    ntx = -(-w // SHADE_W)
-    ys = jnp.arange(h, dtype=jnp.int32)
-    occ_y = ((ys[:, None] >= setup.min_y[None, :])
-             & (ys[:, None] < setup.max_y[None, :]))          # [h, T]
-    tx0 = jnp.arange(ntx, dtype=jnp.int32) * SHADE_W
-    occ_x = ((tx0[None, :] < setup.max_x[:, None])
-             & (tx0[None, :] + SHADE_W > setup.min_x[:, None])
-             & setup.valid[:, None])                          # [T, ntx]
-    occ = jnp.dot(occ_y.astype(jnp.float32), occ_x.astype(jnp.float32)) > 0
-    return max_bin_count(setup, h, w), sx, sy, jnp.count_nonzero(occ)
-
-
-def suggest_binning(scene: Scene, eye, w: int, h: int, margin: float = 1.3):
-    """(cap, (m_x, m_y), rows_cap) for the bins backend, one device trip.
-
-    The span margin (+1 tile each way) absorbs camera motion; bin_pairs
-    still reports `overflow` if a frame ever exceeds it. rows_cap bounds
-    the occupied shade row-blocks (render_frame's raster_rows) with the
-    same margin, from the AABB union — a superset of any coverage mask —
-    or None when >=75% of the frame's row-blocks can be occupied:
-    compacting then costs more in row gathers + scatter-back than the
-    skipped shade saves (measured: CubeP, 70% coverage, 1236 -> 1324 us).
-    """
-    mc, sx, sy, rc = jax.device_get(
-        _bin_stats_jit(scene, jnp.asarray(eye, jnp.float32), w, h)
-    )
-    from ..ops.raster_queue import SHADE_W
-
-    need = max(512, int(int(mc) * margin))
-    cap = (need + 511) // 512 * 512
-    ntx = -(-w // SHADE_W)
-    rows_cap = min(h * ntx, max(64, (int(int(rc) * margin) + 63) // 64 * 64))
-    if rows_cap >= (h * ntx * 3) // 4:
-        rows_cap = None
-    return cap, (int(sx) + 1, int(sy) + 1), rows_cap
-
-
-@partial(jax.jit, static_argnames=("w", "h"))
 def _queue_stats_jit(scene: Scene, eye, w: int, h: int):
     from ..ops.raster_queue import queue_stats
     from ..ops.raster_setup import setup_triangles_planar
@@ -973,25 +727,11 @@ def build_scene_queue(scene: Scene, eye, w: int, h: int,
                             shade_w)
 
 
-def suggest_cap(scene: Scene, eye, w: int, h: int, margin: float = 1.3) -> int:
-    """Pick a power-of-two bin capacity for this scene/viewpoint.
-
-    The tile kernel's bin capacity is a static shape; oversizing it streams
-    empty chunks (HBM traffic + grid steps), undersizing drops triangles.
-    One cheap device round-trip bounds the real maximum, and the margin
-    absorbs camera motion without recompiling every frame.
-    """
-    m = int(_max_bin_count_jit(scene, jnp.asarray(eye, jnp.float32), w, h))
-    need = max(512, int(m * margin))
-    return (need + 511) // 512 * 512  # chunk-multiple; bin cost scales with cap
-
-
 @partial(
     jax.jit,
     static_argnames=(
         "w", "h", "mode", "per_pixel", "shader_idx", "bg_idx", "show_cm",
-        "backend", "raster_cap", "raster_spans", "raster_rows",
-        "return_overflow",
+        "backend", "return_overflow",
     ),
 )
 def render_frame(
@@ -1007,28 +747,31 @@ def render_frame(
     bg_idx: int = 0,
     show_cm: bool | None = None,
     backend: str = "auto",
-    raster_cap: int | None = None,
-    raster_spans: tuple | None = None,
-    raster_rows: int | None = None,
     raster_queue=None,
     return_overflow: bool = False,
 ):
     """Render one frame -> uint32 ABGR [h, w], bottom-left origin.
 
-    The TPU-native rast_draw (rasterizer.rs:1891-2206). ``backend`` selects
-    the G-buffer producer: "xla" (whole-frame oracle), "pallas" (binned tile
-    kernel), "queue" (flat-queue kernel, pass a prebuilt `raster_queue`
-    from ops.raster_queue.build_queue), or "auto" (pallas for real meshes,
-    xla for tiny ones).
+    The array-native rast_draw (rasterizer.rs:1891-2206). ``backend``
+    selects the G-buffer producer: "queue" (the flat-queue kernel; pass a
+    prebuilt `raster_queue` from build_scene_queue), "queue_xla" (the same
+    queue through the kernel's plain-XLA twin), "xla" (the whole-frame
+    oracle, O(T·H·W)), or "auto" ("queue" when a queue is given, else
+    "xla").
 
-    With ``return_overflow=True`` returns (fb, overflow): a traced bool that
-    is True when the Pallas binner's static capacity/spans were exceeded and
-    triangles were dropped. Interactive callers must re-bin when it fires
-    (the reference's dynamic bins are exact by construction,
-    rasterizer.rs:2115-2163; our static-shape bins trade that for a flag).
+    With ``return_overflow=True`` returns (fb, stale): a traced bool that
+    is True when the cached queue no longer covers this frame (or its
+    static caps overflowed and triangles were dropped). Interactive callers
+    must rebuild the queue when it fires (the reference's dynamic bins are
+    exact by construction, rasterizer.rs:2115-2163; static shapes trade
+    that for a flag).
     """
     if show_cm is None:
         show_cm = sh.shader_uses_cm(shader_idx)
+    if backend == "auto":
+        backend = "queue" if raster_queue is not None else "xla"
+    if backend in ("queue", "queue_xla") and raster_queue is None:
+        raise ValueError(f"backend {backend!r} needs a raster_queue")
 
     eye = jnp.asarray(eye, jnp.float32)
     tick = jnp.float32(tick)
@@ -1047,24 +790,15 @@ def render_frame(
             colors = sh.shader_fn(shader_idx)(
                 world, n_world, scene.colors, eye, tick, scene.cm
             )
-        setup = setup_triangles(vp, scene.tris, w, h)
-        from ..ops.raster_pallas import TILE_H, TILE_W
-
-        tileable = h % TILE_H == 0 and w % TILE_W == 0
-        if backend == "queue" and raster_queue is not None:
+        if backend in ("queue", "queue_xla"):
             fb, overflow = raster_and_shade_queue(
                 scene, raster_queue, None if per_pixel else colors,
                 eye, tick, w=w, h=h, per_pixel=per_pixel,
                 shader_idx=shader_idx, bg_fb=fb,
-            )
-        elif backend == "pallas" or (backend in ("auto", "queue")
-                                     and tileable):
-            fb, overflow = raster_and_shade_pallas(
-                scene, setup, vp, world, n_world, colors, eye, tick,
-                w=w, h=h, per_pixel=per_pixel, shader_idx=shader_idx, bg_fb=fb,
-                cap=raster_cap, spans=raster_spans, rows_cap=raster_rows,
+                impl="kernel" if backend == "queue" else "xla",
             )
         else:
+            setup = setup_triangles(vp, scene.tris, w, h)
             gb = raster_gbuffer_xla(setup, h, w)
             fb = shade_gbuffer(
                 gb, scene, vp, world, n_world, colors, eye, tick,

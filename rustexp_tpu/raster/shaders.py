@@ -94,28 +94,13 @@ def cm_texel_from_dir(d):
     return face, ty, tx
 
 
-def _split_row_gather(table, flat):
-    """Row gather in two independent halves: the TPU services disjoint
-    gathers concurrently, ~23% faster than one big gather at FULL-FRAME
-    scale (measured: 887 -> 679 us at 262k indices; CubeP -350 us).
-    Below that the split's concat overhead wins (HeadP's compacted ~215k
-    indices measured +85 us), so only near-full-frame gathers split.
-    Values and order are identical to table[flat]."""
-    n = flat.shape[0]
-    if n < 240_000 or n % 2:
-        return table[flat]
-    h = n // 2
-    return jnp.concatenate([table[flat[:h]], table[flat[h:]]], axis=0)
-
-
 def lookup_texel_cm(cm, power: int, texel):
-    """Single flat-index gather: multi-array advanced indexing hits XLA:TPU's
-    slow gather path (~100 ns/idx); a flat 1-D index into a [E, 3] table is
-    ~300x faster. The batch shape is restored afterwards."""
+    """Single flat-index gather into the [E, 3] table of one convolution
+    power; the batch shape is restored afterwards."""
     face, ty, tx = texel
     flat = ((face * CM_FACE_WDH + ty) * CM_FACE_WDH + tx).reshape(-1)
     table = cm[power].reshape(-1, 3)
-    return _split_row_gather(table, flat).reshape(face.shape + (3,))
+    return table[flat].reshape(face.shape + (3,))
 
 
 def lookup_dir_cm(cm, power: int, d):
@@ -125,12 +110,12 @@ def lookup_dir_cm(cm, power: int, d):
 def lookup_texel_powers(cm, powers: tuple, texel):
     """Fetch several convolution powers at one texel with a SINGLE gather.
 
-    Gather cost on TPU is per index, not per byte — packing the power
-    tables channel-wise turns k lookups into one."""
+    Packing the power tables channel-wise turns k lookups into one
+    gather of k*3-wide rows."""
     face, ty, tx = texel
     flat = ((face * CM_FACE_WDH + ty) * CM_FACE_WDH + tx).reshape(-1)
     tab = jnp.concatenate([cm[p].reshape(-1, 3) for p in powers], axis=1)
-    vals = _split_row_gather(tab, flat).reshape(
+    vals = tab[flat].reshape(
         face.shape + (len(powers), 3))
     return tuple(vals[..., i, :] for i in range(len(powers)))
 

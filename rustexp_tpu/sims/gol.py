@@ -20,7 +20,7 @@ import numpy as np
 
 from ..assets.gol_patterns import PATTERNS, pattern_to_array
 from ..core.timing import FrameTimes
-from ..ops import gol_stencil
+from ..ops import gol_bits, gol_stencil
 
 GRID_WDH = gol_stencil.GRID_WDH
 
@@ -86,9 +86,10 @@ class GoLExperiment:
              backend: str = "auto"):
         """Initial pattern 'ark' matches the reference (RustGoLExperiment.hs:54).
 
-        backend "auto" picks the SWAR bit-packed kernel (ops/gol_bits.py)
-        when the grid supports it, else the MXU circulant form — all
-        backends are bit-identical, only throughput differs."""
+        backend "auto" picks the SWAR bit-packed form (ops/gol_bits.py)
+        when the grid's rows are a multiple of 32, else the circulant
+        matmul form — all backends are bit-identical, only throughput
+        differs."""
         key = jax.random.PRNGKey(seed)
         grid = set_pattern(pattern_to_array(PATTERNS[pattern]), n)
         return GoLState(grid=grid, steps_per_frame=steps_per_frame, backend=backend, key=key)
@@ -100,34 +101,10 @@ class GoLExperiment:
         k = state.steps_per_frame
         backend = state.backend
         if backend == "auto":
-            from ..ops import gol_bits
-
-            r, c = state.grid.shape
-            if r % gol_bits.BITS:
-                backend = "mxu"
-            elif r * c <= gol_bits.MAX_CELLS:
-                backend = "bits"
-            else:
-                # past the single-dispatch VMEM ceiling: banded SWAR
-                # (row bands with redundant halo compute, still ~100x
-                # the MXU circulant path) when a feasible band exists
-                try:
-                    gol_bits.pick_plan(r, c, k)
-                    backend = "bits_banded"
-                except ValueError:
-                    backend = "mxu"
+            backend = ("bits" if state.grid.shape[0] % gol_bits.BITS == 0
+                       else "mxu")
         if backend == "bits":
-            from ..ops import gol_bits
-
-            state.grid = gol_bits.multi_step_swar(state.grid, jnp.int32(k))
-        elif backend == "bits_banded":
-            from ..ops import gol_bits
-
-            # pick_plan chooses (band, generations-per-dispatch); the
-            # chain helper packs once and runs every dispatch in-graph
-            state.grid = gol_bits.multi_step_swar_auto(state.grid, k)
-        elif backend == "pallas":
-            state.grid = gol_stencil.multi_step_pallas(state.grid, jnp.int32(k))
+            state.grid = gol_bits.multi_step_swar(state.grid, k)
         else:
             state.grid = gol_stencil.multi_step(state.grid, k, backend)
         state.grid.block_until_ready()

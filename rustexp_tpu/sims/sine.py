@@ -2,8 +2,8 @@
 
 Reference: rs-src/sine_scroller.rs:4-17 (kernel) and
 hs-src/RustSineExperiment.hs (driver). The reference scans every pixel with
-two scalar sin() calls; on TPU the field is separable — one sin per row and
-column, then a rank-1 outer product on the VPU.
+two scalar sin() calls; here the field is separable — one sin per row and
+column, then a rank-1 outer product.
 """
 
 from __future__ import annotations

@@ -1,58 +1,93 @@
-"""Routing/planning logic of the benchmark + GoL banded machinery.
+"""Routing/planning logic of the benchmark + the GoL kernel planner.
 
-Pure-Python planner checks pin the measured hardware optima (they must
-never silently change), and tiny interpret-mode runs lock the
-bench_gol banded branch and the chain helper's remainder dispatch."""
+Pure-Python planner checks pin the tiling rules of the CUDA SWAR kernel
+(they must never silently change), and tiny CPU runs lock the planner's
+remainder launches and the bench routes."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from rustexp_tpu.ops import gol_bits, gol_stencil
 
 
+def _check_plan(plan, wn, cn, budget=gol_bits.SMEM_BYTES):
+    assert wn % plan.bw == 0 and cn % plan.cw == 0
+    th, tw = plan.bw + 2 * plan.hw, plan.cw + 2 * plan.hc
+    assert gol_bits._tile_bytes(th, tw) <= budget
+    # the halo covers kk generations in both axes, whole words in rows
+    assert plan.hw * gol_bits.BITS >= plan.kk and plan.hc == plan.kk
+    assert plan.cw % gol_bits.BITS == 0
+
+
 def test_pick_plan_reproduces_measured_optima():
-    """The cost model must keep choosing the plans the v5e sweep measured
-    as fastest (BASELINE.md GoL scaling table): 2048-row bands at 4096^2,
-    1024 at 8192^2, 256 at 16384^2 — all at 128 gens/dispatch."""
-    assert gol_bits.pick_plan(4096, 4096, 65536) == (2048, 128)
-    assert gol_bits.pick_plan(8192, 8192, 65536) == (1024, 128)
-    assert gol_bits.pick_plan(16384, 16384, 65536) == (256, 128)
+    """The bench shapes get valid plans: 2048^2 spreads over most SMs in
+    one wave (one block cannot hold its 512 KB packed grid), and every
+    plan fits the per-block shared-memory budget with its halos."""
+    for n in (256, 2048, 4096, 8192):
+        wn, cn = n // 32, n
+        plan = gol_bits.pick_plan(wn, cn, 65536)
+        _check_plan(plan, wn, cn)
+    plan = gol_bits.pick_plan(64, 2048, 65536)
+    blocks = (64 // plan.bw) * (2048 // plan.cw)
+    assert gol_bits.NUM_SMS // 2 < blocks <= gol_bits.NUM_SMS
 
 
-def test_pick_band_counts_sublane_padding():
-    """Feasibility must use sublane-PADDED word-rows: a [20, 16384] block
-    (nominal 1.25 MB) really allocates 24 rows and failed TPU compile at
-    17.45 MB scoped VMEM, while same-words [40, 8192] runs."""
-    # band 512 @ k=64 on a 16384-wide grid would be the [20, 16384] block
-    b = gol_bits.pick_band(16384, 16384, 64)
-    hw = 2  # ceil(64/32)
-    bw = b // 32
-    assert gol_bits._pad8(bw + 2 * hw) * 16384 <= gol_bits.VMEM_BLOCK_WORDS
-    assert b != 512  # the unpadded-count answer
+@pytest.mark.parametrize("budget", [4096, 16384, 96 * 1024])
+def test_pick_plan_respects_smem_budget(budget):
+    """Smaller shared-memory budgets shrink the tile, never overflow it,
+    halos included."""
+    plan = gol_bits.pick_plan(64, 2048, 1000, smem_bytes=budget)
+    _check_plan(plan, 64, 2048, budget)
+
+
+@pytest.mark.parametrize("k", [1, 7, 5000])
+def test_pick_plan_small_grids_and_short_runs(k):
+    """Grids down to one packed word row get a valid tiling, and a run
+    shorter than the candidate generations per launch never launches
+    more generations than asked (kk <= k)."""
+    for n in (32, 64, 256, 512, 1024, 2048):
+        plan = gol_bits.pick_plan(n // 32, n, k)
+        _check_plan(plan, n // 32, n)
+        assert plan.kk <= k
 
 
 def test_chain_remainder_dispatch():
-    """multi_step_packed_chain splits k = full*kk + rem into fori_loop
-    dispatches plus one smaller remainder dispatch on the same band; the
-    result must equal the roll oracle for k values that do not divide."""
+    """The tiled plan splits k = full*kk + rem into kk-generation launches
+    plus one smaller remainder launch on the same tiles; the result must
+    equal the roll oracle for k values that do not divide."""
     rng = np.random.default_rng(6)
     g = jnp.asarray(rng.integers(0, 2, (128, 256)).astype(np.int32))
-    budget = 3000  # deep halos infeasible -> kk halves below k
-    k = 300
-    band, kk = gol_bits.pick_plan(128, 256, k, budget=budget)
-    assert k % kk != 0, (k, kk)  # the case under test
-    out = gol_bits.unpack_rows(gol_bits.multi_step_packed_chain(
-        gol_bits.pack_rows(g), k, budget=budget))
+    k = 75
+    plan = gol_bits.Plan(1, 64, 16)
+    assert k % plan.kk != 0  # the case under test
+    assert gol_bits._launches(k, plan.kk) == [16, 16, 16, 16, 11]
+    out = gol_bits.unpack_rows(gol_bits.multi_step_packed_tiled(
+        gol_bits.pack_rows(g), k, plan))
     want = np.asarray(gol_stencil.multi_step(g, k, "roll"))
     np.testing.assert_array_equal(np.asarray(out), want)
 
 
-def test_bench_gol_banded_branch(monkeypatch):
-    """bench_gol's big-grid route must produce a well-formed metric via
-    the banded chain (forced at test size by shrinking MAX_CELLS)."""
+@pytest.mark.parametrize("backend", ["bits", "bits_xla", "roll"])
+def test_bench_gol_routes(backend):
+    """bench_gol produces a well-formed metric on every route (tiny CPU
+    run: the numbers themselves mean nothing here)."""
     from rustexp_tpu.app import benchmark
 
-    monkeypatch.setattr(gol_bits, "MAX_CELLS", 0)
-    out = benchmark.bench_gol(generations_per_dispatch=8, runs=1, n=64)
+    out = benchmark.bench_gol(generations_per_dispatch=8, runs=1, n=64,
+                              backend=backend)
     assert out["metric"] == "gol_cell_updates_per_s"
     assert out["value"] > 0 and out["gens_per_s"] > 0
+
+
+def test_scene_backend_threshold():
+    """Every mesh size takes the flat queue when the frame tiles (no
+    triangle-count threshold: the queue beat the whole-frame oracle on
+    the 12-triangle cube too); frames that do not tile take the oracle."""
+    from rustexp_tpu.ops.raster_queue import TILE_H, TILE_W
+    from rustexp_tpu.sims.rasterizer import _work_kind
+
+    assert _work_kind(512, 512) == "queue"
+    assert _work_kind(2 * TILE_W, TILE_H) == "queue"
+    assert _work_kind(TILE_W + 8, TILE_H) == "xla"
+    assert _work_kind(TILE_W, TILE_H + 1) == "xla"

@@ -2,6 +2,7 @@
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from rustexp_tpu.assets.gol_patterns import PATTERNS, pattern_to_array
 from rustexp_tpu.ops import gol_stencil
@@ -43,8 +44,10 @@ def test_backends_agree():
         g5_loop = gol_stencil.step_roll(g5_loop)
     g5 = gol_stencil.multi_step(g, 5, "mxu")
     np.testing.assert_array_equal(np.asarray(g5), np.asarray(g5_loop))
-    gp = gol_stencil.multi_step_pallas(g, jnp.int32(5))
-    np.testing.assert_array_equal(np.asarray(gp), np.asarray(g5_loop))
+    from rustexp_tpu.ops import gol_bits
+
+    gb = gol_bits.multi_step_swar(g, 5)
+    np.testing.assert_array_equal(np.asarray(gb), np.asarray(g5_loop))
 
 
 def test_swar_pack_roundtrip():
@@ -57,8 +60,8 @@ def test_swar_pack_roundtrip():
 
 
 def test_swar_parity():
-    """The bit-packed SWAR kernel is bit-identical to the roll oracle,
-    including across the in-kernel unroll boundary and non-square grids."""
+    """The bit-packed SWAR step is bit-identical to the roll oracle on
+    square and non-square grids."""
     from rustexp_tpu.ops import gol_bits
 
     rng = np.random.default_rng(4)
@@ -67,41 +70,46 @@ def test_swar_parity():
         ref = g
         for _ in range(k):
             ref = gol_stencil.step_roll(ref)
-        out = gol_bits.multi_step_swar(g, jnp.int32(k))
+        out = gol_bits.multi_step_swar(g, k)
         assert out.dtype == g.dtype
         np.testing.assert_array_equal(np.asarray(out), np.asarray(ref))
 
 
 def test_swar_banded_parity():
-    """The banded SWAR path (packed-space row bands + whole-word torus
-    halos, for grids past the single-dispatch VMEM ceiling) is
-    bit-identical to the roll oracle, including halo depths that round
-    up to the next word (k=17, k=33) and k == h == band edge cases."""
+    """The jnp twin of the CUDA kernel's tiling (tiles of bw word rows x
+    cw columns plus torus-wrapped halos, open tile edges, kk generations
+    per launch) is bit-identical to the roll oracle — halo depths that
+    round up to the next word (kk=17, 33), tiles spanning the whole grid
+    in one axis or in both, and remainder launches (k % kk != 0)."""
     from rustexp_tpu.ops import gol_bits
 
     rng = np.random.default_rng(5)
     g = jnp.asarray(rng.integers(0, 2, (256, 192)).astype(np.int32))
-    for k, band in ((1, 64), (8, 64), (17, 32), (32, 128), (33, 64),
-                    (64, 64), (40, 256)):
+    p = gol_bits.pack_rows(g)
+    for k, plan in ((1, gol_bits.Plan(1, 32, 8)),
+                    (8, gol_bits.Plan(2, 64, 8)),
+                    (17, gol_bits.Plan(1, 32, 17)),
+                    (40, gol_bits.Plan(8, 96, 33)),
+                    (64, gol_bits.Plan(4, 192, 32)),
+                    (12, gol_bits.Plan(8, 192, 12))):
         ref = np.asarray(gol_stencil.multi_step(g, k, "roll"))
-        got = np.asarray(gol_bits.multi_step_swar_banded(g, k, band=band))
-        np.testing.assert_array_equal(got, ref, err_msg=f"k={k} band={band}")
-        # the packed-space form is the same computation
-        got_p = gol_bits.unpack_rows(gol_bits.multi_step_packed_banded(
-            gol_bits.pack_rows(g), k, band=band))
-        np.testing.assert_array_equal(np.asarray(got_p), ref,
-                                      err_msg=f"packed k={k} band={band}")
+        got = np.asarray(gol_bits.unpack_rows(
+            gol_bits.multi_step_packed_tiled(p, k, plan)))
+        np.testing.assert_array_equal(got, ref, err_msg=f"k={k} {plan}")
 
 
 def test_swar_banded_k0_is_identity():
-    # Regression: hw=0 made the [-hw:] halo slice grab WHOLE neighbor
-    # bands, cyclically shifting the grid instead of doing nothing.
+    # k == 0 must return the grid unchanged on every path (no launch with
+    # a zero-generation halo).
     from rustexp_tpu.ops import gol_bits
 
     rng = np.random.default_rng(7)
     g = jnp.asarray(rng.integers(0, 2, (128, 128)).astype(np.int32))
-    got = np.asarray(gol_bits.multi_step_swar_banded(g, 0, band=32))
+    p = gol_bits.pack_rows(g)
+    got = np.asarray(gol_bits.multi_step_swar(g, 0))
     np.testing.assert_array_equal(got, np.asarray(g))
+    tiled = gol_bits.multi_step_packed_tiled(p, 0, gol_bits.Plan(1, 32, 8))
+    np.testing.assert_array_equal(np.asarray(tiled), np.asarray(p))
 
 
 def test_swar_guard():
@@ -110,10 +118,12 @@ def test_swar_guard():
     import pytest
 
     with pytest.raises(ValueError):
-        gol_bits.multi_step_swar(jnp.zeros((33, 64), jnp.int32), jnp.int32(1))
+        gol_bits.multi_step_swar(jnp.zeros((33, 64), jnp.int32), 1)
+    # no tile of at least one warp of columns fits a tiny shared-memory
+    # budget: the planner refuses instead of emitting a plan that cannot
+    # launch
     with pytest.raises(ValueError):
-        gol_bits.multi_step_swar(jnp.zeros((4096, 4096), jnp.int32),
-                                 jnp.int32(1))
+        gol_bits.pick_plan(128, 4096, 64, smem_bytes=1024)
 
 
 def test_gol_sim_auto_backend():
@@ -277,14 +287,34 @@ def test_sim_worker_snapshot_and_pause():
 def test_gol_empty_and_full_grids_all_backends():
     """Saturation corner cases for the SWAR carry-save adders: an empty
     torus stays empty; a full torus dies in one generation (8 live
-    neighbors everywhere). All three kernels must agree."""
+    neighbors everywhere). Every form must agree."""
     from rustexp_tpu.ops import gol_bits
 
     for fill in (0, 1):
         g = jnp.full((64, 128), fill, jnp.int32)
         want = np.zeros((64, 128), np.int32)  # both evolve to dead
-        for backend in ("roll", "pallas"):
-            got = np.asarray(gol_stencil.multi_step(g, 1, backend))
-            np.testing.assert_array_equal(got, want, err_msg=backend)
+        got = np.asarray(gol_stencil.multi_step(g, 1, "roll"))
+        np.testing.assert_array_equal(got, want, err_msg="roll")
         got = np.asarray(gol_bits.multi_step_swar(g, 1))
         np.testing.assert_array_equal(got, want, err_msg="bits")
+        got = np.asarray(gol_bits.unpack_rows(gol_bits.multi_step_packed_tiled(
+            gol_bits.pack_rows(g), 1, gol_bits.Plan(1, 32, 8))))
+        np.testing.assert_array_equal(got, want, err_msg="tiled")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k", [(256, 1000), (2048, 100), (512, 77)])
+def test_swar_cuda_kernel_matches_twin(gpu, n, k):
+    """The CUDA kernel (ops/cuda/gol_swar.cu) is bit-identical to the
+    plain-XLA SWAR form for the plan pick_plan chooses, and for a plan
+    whose halo rounds up to the next word (kk = 17) with a remainder
+    launch."""
+    from rustexp_tpu.ops import cuda_ffi, gol_bits
+
+    rng = np.random.default_rng(n)
+    p = gol_bits.pack_rows(jnp.asarray(
+        rng.integers(0, 2, (n, n)).astype(np.int32)))
+    want = np.asarray(gol_bits.multi_step_packed_xla(p, k))
+    for plan in (gol_bits.pick_plan(n // 32, n, k), gol_bits.Plan(1, 32, 17)):
+        got = np.asarray(cuda_ffi.gol_swar(p, k, plan))
+        np.testing.assert_array_equal(got, want, err_msg=str(plan))

@@ -57,9 +57,11 @@ def raster_scene():
 def test_golden_raster_cmrefl_pixel(raster_scene):
     from rustexp_tpu.raster import camera, pipeline as pp
 
+    eye = jnp.asarray(camera.cam_orbit(0.5))
     fb = pp.render_frame(
-        raster_scene, jnp.asarray(camera.cam_orbit(0.5)), 0.5, w=128, h=128,
-        per_pixel=True, shader_idx=5, bg_idx=1, show_cm=True, backend="pallas",
+        raster_scene, eye, 0.5, w=128, h=128,
+        per_pixel=True, shader_idx=5, bg_idx=1, show_cm=True, backend="queue",
+        raster_queue=pp.build_scene_queue(raster_scene, eye, 128, 128),
     )
     _check("raster_sphere_cmrefl_p", np.asarray(fb), 0.003)
 
@@ -67,10 +69,13 @@ def test_golden_raster_cmrefl_pixel(raster_scene):
 def test_golden_raster_plastic_vertex(raster_scene):
     from rustexp_tpu.raster import camera, pipeline as pp
 
+    eye = jnp.asarray(camera.cam_orbit_front(1.3))
     fb = pp.render_frame(
-        raster_scene, jnp.asarray(camera.cam_orbit_front(1.3)), 1.3, w=128,
+        raster_scene, eye, 1.3, w=128,
         h=128, per_pixel=False, shader_idx=3, bg_idx=0, show_cm=False,
-        backend="pallas",
+        backend="queue",
+        raster_queue=pp.build_scene_queue(raster_scene, eye, 128, 128,
+                                          per_pixel=False),
     )
     _check("raster_sphere_plastic_v", np.asarray(fb), 0.003)
 

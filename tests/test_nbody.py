@@ -4,6 +4,7 @@ accuracy vs brute-force oracle, stable-orbit sanity, render semantics."""
 import math
 
 import numpy as np
+import pytest
 import jax
 import jax.numpy as jnp
 
@@ -121,7 +122,7 @@ def test_pallas_forces_match_dense():
     key = jax.random.PRNGKey(9)
     px, py, vx, vy, m = nbody.stable_orbits(key, 1024)
     fx_o, fy_o = nbody_forces.forces_dense(px, py, m)
-    fx_p, fy_p = nbody_pallas.forces_pallas(px, py, m, 512, False)
+    fx_p, fy_p = nbody_pallas.forces_pallas(px, py, m, interpret=True)
     fo = np.hypot(np.asarray(fx_o), np.asarray(fy_o))
     err = np.hypot(np.asarray(fx_p) - np.asarray(fx_o), np.asarray(fy_p) - np.asarray(fy_o))
     assert (err / np.maximum(fo, 1e-9)).max() < 1e-4
@@ -254,8 +255,8 @@ class TestNearBlockSelection:
         pxs, pys, ms = nbody_bh.morton_sort(px, py, m)
         bfx, bfy = nbody_forces.forces_dense(pxs, pys, ms)
         mag = np.hypot(np.asarray(bfx), np.asarray(bfy)) + 1e-9
-        # Measured on v5e (seed 11): p90 = 0.18 / 0.090 / 0.045 at k = 6 /
-        # 12 / 16 — monotone in k, the BH contract. A self-attraction
+        # p90 falls as k grows (seed 11: 0.18 / 0.090 / 0.045 at k = 6 /
+        # 12 / 16) — monotone in k, the BH contract. A self-attraction
         # artifact (the pre-fix failure mode) is k-independent and an
         # order of magnitude larger for the affected blocks.
         p90s = []
@@ -288,26 +289,48 @@ def test_viewer_raw_key_routing():
     st = exp.handle_key(st, "A"); assert abs(st.theta - th0) < 1e-9
 
 
-def test_morton_sort_bitonic_parity():
-    """morton_sort's Pallas bitonic route (ops/sort_bitonic.py) must be
-    BIT-IDENTICAL to the argsort route — same stable order, so flipping
-    nbody_bh.USE_BITONIC_SORT can never change physics. Power-of-two and
-    non-power-of-two (fallback) sizes both covered."""
+def _argsort_reference(px, py, m, vx, vy):
+    """Morton order by numpy's stable argsort + per-array gathers."""
     from rustexp_tpu.ops import nbody_bh
 
-    key = jax.random.PRNGKey(11)
-    for n in (1024, 4096):
-        px, py, vx, vy, m = nbody.stable_orbits(key, n)
-        a = nbody_bh.morton_sort(px, py, m, vx, vy, use_bitonic=False)
-        b = nbody_bh.morton_sort(px, py, m, vx, vy, use_bitonic=True)
-        for x, y in zip(a, b):
-            np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
-    # non-power-of-two silently falls back to argsort
-    px, py, vx, vy, m = nbody.stable_orbits(key, 768)
-    b = nbody_bh.morton_sort(px, py, m, vx, vy, use_bitonic=True)
-    a = nbody_bh.morton_sort(px, py, m, vx, vy, use_bitonic=False)
-    for x, y in zip(a, b):
-        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    code = np.asarray(nbody_bh.morton_codes(
+        px, py, jnp.min(px), jnp.max(px), jnp.min(py), jnp.max(py)))
+    order = np.argsort(code, kind="stable")
+    return [np.asarray(a)[order] for a in (px, py, m, vx, vy)]
+
+
+@pytest.mark.parametrize("n", [1024, 768, 1000])
+def test_morton_sort_matches_stable_argsort(n):
+    """morton_sort (one lax.sort with the payloads as operands) equals a
+    stable argsort + gathers bit for bit — power-of-two and other N."""
+    from rustexp_tpu.ops import nbody_bh
+
+    px, py, vx, vy, m = nbody.stable_orbits(jax.random.PRNGKey(11), n)
+    got = nbody_bh.morton_sort(px, py, m, vx, vy)
+    for a, b in zip(got, _argsort_reference(px, py, m, vx, vy)):
+        np.testing.assert_array_equal(np.asarray(a), b)
+
+
+def test_morton_sort_ties_keep_input_order():
+    """Particles sharing one Morton cell keep their input order (stable),
+    and every payload travels with its own particle."""
+    from rustexp_tpu.ops import nbody_bh
+
+    n = 512
+    rng = np.random.default_rng(3)
+    # 8 distinct positions -> heavy code ties
+    cells = rng.integers(0, 8, n)
+    px = jnp.asarray(cells * 10.0, jnp.float32)
+    py = jnp.asarray((cells % 3) * 7.0, jnp.float32)
+    tag = jnp.arange(n, dtype=jnp.float32)      # payload = input position
+    m = jnp.ones(n, jnp.float32)
+    spx, spy, sm, stag, stag2 = nbody_bh.morton_sort(px, py, m, tag, tag * 2)
+    stag = np.asarray(stag)
+    code = np.asarray(nbody_bh.morton_codes(px, py, 0.0, 70.0, 0.0, 14.0))
+    order = np.argsort(code, kind="stable")
+    np.testing.assert_array_equal(stag, order.astype(np.float32))
+    np.testing.assert_array_equal(np.asarray(stag2), 2 * stag)
+    np.testing.assert_array_equal(np.asarray(spx), np.asarray(px)[order])
 
 
 def test_bh_degenerate_configurations_stay_finite():

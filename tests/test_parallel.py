@@ -115,11 +115,9 @@ def test_raster_sharded_per_vertex():
 
 
 # ---------------------------------------------------------------------------
-# Multi-host meshes: 2-D ("dcn", "ici") axes, sharding the long dimension
-# over BOTH. JAX treats the axis tuple as one combined ring, so the halo
-# ppermute / source all-gather cross DCN only at host boundaries. On 8
-# virtual CPU devices a 2x4 mesh exercises the exact SPMD program a
-# 2-host x 4-chip pod slice would run.
+# 2-D meshes: the long dimension sharded over BOTH axes. JAX treats the
+# axis tuple as one combined ring; the programs must be bit-exact there
+# too.
 # ---------------------------------------------------------------------------
 
 
@@ -191,20 +189,20 @@ def test_gol_sharded_pallas_single_device_mesh():
     g = jnp.asarray(np.random.default_rng(3).integers(
         0, 2, (64, 128)).astype(np.int32))
     ref = np.asarray(gol_stencil.multi_step(g, 4, "roll"))
-    step = gol_shard.make_multi_step(_mesh(1), k=4, backend="pallas")
+    step = gol_shard.make_multi_step(_mesh(1), k=4, backend="bits")
     got = np.asarray(step(gol_shard.shard_grid(g, _mesh(1))))
     np.testing.assert_array_equal(got, ref)
 
 
 def test_gol_sharded_pallas_backend_matches_oracle():
-    """VERDICT r2 #5: the sharded GoL must run the PRODUCTION fused Pallas
-    kernel. k-deep halos absorb k generations of y-torus contamination, so
-    the interior is bit-exact vs the single-device evolution."""
+    """The sharded GoL runs the PRODUCTION SWAR step. k-deep halos absorb
+    k generations of y-torus contamination, so the interior is bit-exact
+    vs the single-device evolution."""
     rng = np.random.default_rng(42)
     g = jnp.asarray(rng.integers(0, 2, (256, 256)).astype(np.int32))
     mesh = _mesh(8)
     for k in (1, 8, 32):
-        step = gol_shard.make_multi_step(mesh, k=k, backend="pallas")
+        step = gol_shard.make_multi_step(mesh, k=k, backend="bits")
         got = np.asarray(step(gol_shard.shard_grid(g, mesh)))
         want = np.asarray(gol_stencil.multi_step(g, k, "roll"))
         np.testing.assert_array_equal(got, want, err_msg=f"k={k}")
@@ -214,7 +212,7 @@ def test_gol_sharded_bits_backend_matches_oracle():
     """The sharded GoL over the SWAR bit-packed kernel (the fastest
     single-chip path, ops/gol_bits.py) is bit-exact vs the roll oracle:
     the halo (rounded up to 16 rows for word alignment) absorbs the
-    padded-edge torus contamination exactly as in the pallas backend."""
+    padded-edge torus contamination, including halos that round up."""
     rng = np.random.default_rng(43)
     g = jnp.asarray(rng.integers(0, 2, (256, 256)).astype(np.int32))
     mesh = _mesh(8)  # 32 rows/shard: halo<=32 caps k at 32
@@ -226,9 +224,9 @@ def test_gol_sharded_bits_backend_matches_oracle():
 
 
 def test_gol_sharded_bits_past_single_chip_ceiling():
-    """8 shards of a 4096^2 grid each pack a 512(+32)-row band — past the
-    SWAR kernel's single-chip 2048^2 MAX_CELLS guard, proving the sharded
-    path is how grids beyond the VMEM ceiling scale (VERDICT r2 #5)."""
+    """8 shards of a 4096^2 grid each pack a 512(+32)-row band: a grid
+    larger than any one device's share steps bit-exactly through the
+    halo-padded local SWAR step."""
     rng = np.random.default_rng(44)
     g = jnp.asarray(rng.integers(0, 2, (4096, 4096)).astype(np.int32))
     mesh = _mesh(8)
@@ -239,20 +237,15 @@ def test_gol_sharded_bits_past_single_chip_ceiling():
 
 
 def test_gol_sharded_bits_bands_within_shard():
-    """When even one halo-padded SHARD exceeds the per-dispatch VMEM
-    budget, step_k_bits bands within the shard (multi_step_packed_banded
-    on the padded block). A tiny injected budget forces that path at test
-    size; banding reproduces torus evolution of the padded block
-    bit-exactly, so the result must still match the roll oracle."""
+    """Tall shards (256 rows each) with halos of one and two bit-words:
+    the padded local block (288 / 320 rows) steps as its own torus, and
+    its wrong wrap never reaches the interior, so the result must match
+    the roll oracle."""
     rng = np.random.default_rng(45)
     g = jnp.asarray(rng.integers(0, 2, (2048, 256)).astype(np.int32))
     mesh = _mesh(8)  # 256 rows/shard; padded = 288 (k=8) / 320 (k=32) rows
     for k in (8, 32):
-        # padded shard blocks are 16 sublane-padded word-rows x 256 =
-        # 4096 words — over the 3000 budget — while 96/160-row bands fit
-        # (8 padded word-rows = 2048 words), giving 2-3 bands per shard
-        step = gol_shard.make_multi_step(mesh, k=k, backend="bits",
-                                         vmem_budget=3000)
+        step = gol_shard.make_multi_step(mesh, k=k, backend="bits")
         got = np.asarray(step(gol_shard.shard_grid(g, mesh)))
         want = np.asarray(gol_stencil.multi_step(g, k, "roll"))
         np.testing.assert_array_equal(got, want, err_msg=f"k={k}")
@@ -405,9 +398,9 @@ def test_raster_sharded_cyclic_interleave_bit_exact(n_dev):
 
 
 def test_production_paths_multihost_mesh():
-    """The production sharded kernels (fused-Pallas GoL, block-BH) also run
-    over a 2-D ("dcn", "ici") mesh with the long axis sharded over BOTH —
-    the SPMD program of a multi-host pod slice. Bit-exact."""
+    """The production sharded steps (SWAR GoL, block-BH) also run over a
+    2-D mesh with the long axis sharded over BOTH axes (collectives over
+    an axis tuple). Bit-exact."""
     from rustexp_tpu.ops import nbody_bh
     from rustexp_tpu.parallel import nbody_shard
     from rustexp_tpu.sims.nbody import stable_orbits
@@ -417,7 +410,7 @@ def test_production_paths_multihost_mesh():
 
     rng = np.random.default_rng(1)
     g = jnp.asarray(rng.integers(0, 2, (256, 256)).astype(np.int32))
-    step = gol_shard.make_multi_step(mesh2, axis=ax, k=8, backend="pallas")
+    step = gol_shard.make_multi_step(mesh2, axis=ax, k=8, backend="bits")
     got = np.asarray(step(gol_shard.shard_grid(g, mesh2, axis=ax)))
     want = np.asarray(gol_stencil.multi_step(g, 8, "roll"))
     np.testing.assert_array_equal(got, want)
@@ -430,7 +423,7 @@ def test_production_paths_multihost_mesh():
     for a, b in zip(got, want):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
-    # SWAR bit-packed GoL (the fastest kernel) over the same 2-D mesh
+    # SWAR bit-packed GoL with a different grid shape over the same mesh
     g = jnp.asarray(rng.integers(0, 2, (256, 128)).astype(np.int32))
     bstep = gol_shard.make_multi_step(mesh2, axis=ax, k=4, backend="bits")
     bgot = np.asarray(bstep(gol_shard.shard_grid(g, mesh2, axis=ax)))
@@ -475,20 +468,19 @@ def test_raster_queue_multihost_mesh():
 
 
 def test_gol_sharded_pallas_big_grid():
-    """2048^2 exceeds the single-chip VMEM-resident kernel (~640k cells);
-    row-sharding brings each k-halo-padded local block back under the
-    limit — the scaling story for grids beyond one chip's VMEM."""
+    """2048^2 row-sharded over 8 devices through the SWAR step with
+    k-halo-padded local blocks — bit-exact vs the roll oracle."""
     rng = np.random.default_rng(9)
     g = jnp.asarray(rng.integers(0, 2, (2048, 2048)).astype(np.int32))
     mesh = _mesh(8)
-    step = gol_shard.make_multi_step(mesh, k=4, backend="pallas")
+    step = gol_shard.make_multi_step(mesh, k=4, backend="bits")
     got = np.asarray(step(gol_shard.shard_grid(g, mesh)))
     want = np.asarray(gol_stencil.multi_step(g, 4, "roll"))
     np.testing.assert_array_equal(got, want)
 
 
 def test_dist_sort_stable_bit_exact():
-    """parallel/sort_shard: the hypercube bitonic compare-split sort's
+    """parallel/sort_shard: the hypercube compare-split sort's
     concatenated output must be BIT-IDENTICAL to a replicated stable
     sort — including heavy key ties, which the (key, global position)
     lexicographic compare resolves exactly like jnp's stable argsort."""
@@ -508,7 +500,7 @@ def test_dist_sort_stable_bit_exact():
     @partial(shard_map, mesh=mesh, in_specs=(P("p"),) * 4,
              out_specs=(P("p"),) * 5, check_rep=False)
     def run(k, a, b, c):
-        sk, sg, sv = dist_sort_stable(k, [a, b, c], "p", 8, interpret=True)
+        sk, sg, sv = dist_sort_stable(k, [a, b, c], "p", 8)
         return (sk, sg, *sv)
 
     sk, sg, *sv = run(jnp.asarray(key), *[jnp.asarray(v) for v in vals])
@@ -520,8 +512,8 @@ def test_dist_sort_stable_bit_exact():
 
 
 def test_dist_sort_xla_fallback_matches():
-    """Non-power-of-two local chunks route the local sort/merge through
-    lexsort instead of the Pallas network — same global result."""
+    """Non-power-of-two local chunks sort and merge exactly as well —
+    same global result as a replicated stable sort."""
     from functools import partial
 
     from jax.experimental.shard_map import shard_map
@@ -538,14 +530,14 @@ def test_dist_sort_xla_fallback_matches():
     @partial(shard_map, mesh=mesh, in_specs=(P("p"),) * 2,
              out_specs=(P("p"),) * 3, check_rep=False)
     def run(k, a):
-        sk, sg, sv = dist_sort_stable(k, [a], "p", 8, interpret=True)
+        sk, sg, sv = dist_sort_stable(k, [a], "p", 8)
         return (sk, sg, sv[0])
 
     sk, sg, sval = run(jnp.asarray(key), jnp.asarray(val))
     order = np.argsort(key, kind="stable")
     np.testing.assert_array_equal(np.asarray(sk), key[order])
-    # gidx must be the stable argsort order itself (a gidx bug on the
-    # lexsort fallback path would otherwise pass on keys/values alone)
+    # gidx must be the stable argsort order itself (a gidx bug would
+    # otherwise pass on keys/values alone)
     np.testing.assert_array_equal(np.asarray(sg), order)
     np.testing.assert_array_equal(np.asarray(sval), val[order])
 
@@ -600,7 +592,7 @@ def test_dist_sort_non_power_of_two_devices(n_dev):
     @partial(shard_map, mesh=mesh, in_specs=(P("p"),) * 3,
              out_specs=(P("p"),) * 4, check_rep=False)
     def run(k, a, b):
-        sk, sg, sv = dist_sort_stable(k, [a, b], "p", n_dev, interpret=True)
+        sk, sg, sv = dist_sort_stable(k, [a, b], "p", n_dev)
         return (sk, sg, *sv)
 
     sk, sg, *sv = run(jnp.asarray(key), *[jnp.asarray(v) for v in vals])

@@ -1,5 +1,5 @@
-"""Rasterizer tests: setup, G-buffer oracle vs Pallas kernel, shading,
-modes, cameras, and the benchmark table."""
+"""Rasterizer tests: setup, G-buffer oracle vs the flat-queue kernel,
+shading, modes, cameras, and the benchmark table."""
 
 import numpy as np
 import jax
@@ -9,10 +9,36 @@ import pytest
 from rustexp_tpu.assets import cubemap, mesh
 from rustexp_tpu.ops.raster_setup import setup_triangles
 from rustexp_tpu.ops.raster_xla import raster_gbuffer_xla
-from rustexp_tpu.ops.raster_pallas import bin_triangles, raster_gbuffer_pallas
+from rustexp_tpu.ops import raster_queue as rq
+from rustexp_tpu.ops.raster_setup import setup_triangles_planar
 from rustexp_tpu.raster import camera, pipeline as pp, shaders as sh
 
-W, H = 128, 128  # pallas-tileable test frame
+W, H = 128, 128  # queue-tileable test frame
+
+
+def _planar(vp, tris, w=W, h=H):
+    """Planar setup from indexed viewport vertices."""
+    c = [vp[tris[:, j]] for j in range(3)]
+    return setup_triangles_planar(jnp.stack([v[:, 0] for v in c]),
+                                  jnp.stack([v[:, 1] for v in c]),
+                                  jnp.stack([v[:, 2] for v in c]), w, h)
+
+
+def _queue_for(setup, h=H, w=W, **kw):
+    stats = tuple(int(x) for x in rq.queue_stats(setup, h, w))
+    s_cap, m_y, m_x, t_cap = rq.suggest_queue_config(stats)
+    return rq.build_queue(setup, h, w, s_cap=s_cap, m_y=m_y, m_x=m_x,
+                          t_cap=t_cap, **kw)
+
+
+def _tile_sets(q):
+    """{tile index: sorted triangle ids} from a Queue's segment table."""
+    ids = np.asarray(q.ids).reshape(-1)
+    out = {}
+    for t, (s0, cnt, _) in enumerate(np.asarray(q.tiles)):
+        if cnt:
+            out[t] = sorted(ids[s0:s0 + cnt].tolist())
+    return out
 
 
 def _vp(verts):
@@ -94,53 +120,56 @@ class TestGBuffer:
         assert tid[50, 50] == 0
 
     def test_pallas_matches_xla(self):
+        # The flat-queue kernel's depth and coverage equal the oracle's.
         m = mesh.make_sphere(12, 24)
         scene = pp.make_scene(m, cubemap.make_procedural_set())
         eye = camera.cam_orbit(0.7)
         vp, _, _ = pp.transform_vertices(scene, jnp.asarray(eye), W, H)
-        s = setup_triangles(vp, scene.tris, W, H)
-        gx = raster_gbuffer_xla(s, H, W)
-        gp, overflow = raster_gbuffer_pallas(s, H, W)
-        assert not bool(overflow)
-        assert np.array_equal(np.asarray(gx.tid), np.asarray(gp.tid))
-        assert np.array_equal(np.asarray(gx.z), np.asarray(gp.z))
-        assert np.array_equal(np.asarray(gx.b), np.asarray(gp.b))
+        gx = raster_gbuffer_xla(setup_triangles(vp, scene.tris, W, H), H, W)
+        sp = _planar(vp, scene.tris)
+        q = _queue_for(sp)
+        z, mask, _, stale = rq.raster_attrs_queue(q, sp, (), 0, 0, H, W,
+                                                  interpret=True)
+        assert not bool(stale)
+        assert np.array_equal(np.asarray(gx.tid) >= 0, np.asarray(mask))
+        assert np.array_equal(np.asarray(gx.z), np.asarray(z))
 
     def test_pairs_binning_matches_dense(self):
-        # bin_pairs (flat pair sort) must produce the same bins as the
-        # dense coverage-matrix binner for spans within its budget.
-        from rustexp_tpu.ops.raster_pallas import bin_pairs
-
+        # Every queue order bins exactly the tiles of each triangle's
+        # pixel AABB (the dense coverage matrix), for spans within budget.
         m = mesh.make_sphere(10, 20)
         scene = pp.make_scene(m, cubemap.make_procedural_set())
-        vp, _, _ = pp.transform_vertices(scene, jnp.asarray(camera.cam_orbit(0.3)), W, H)
-        s = setup_triangles(vp, scene.tris, W, H)
-        dense = bin_triangles(s, H, W, cap=256)
-        pairs = bin_pairs(s, H, W, cap=256, m_x=4, m_y=6)
-        assert not bool(pairs.overflow)
-        np.testing.assert_array_equal(np.asarray(dense.counts),
-                                      np.asarray(pairs.counts))
-        cnt = np.asarray(dense.counts)
-        di, pi = np.asarray(dense.ids), np.asarray(pairs.ids)
-        for t in range(cnt.shape[0]):
-            np.testing.assert_array_equal(di[t, :cnt[t]], pi[t, :cnt[t]])
+        vp, _, _ = pp.transform_vertices(
+            scene, jnp.asarray(camera.cam_orbit(0.3)), W, H)
+        sp = _planar(vp, scene.tris)
+        ty0, ty1, tx0, tx1 = (np.asarray(a) for a in rq.tile_ranges(sp))
+        valid = np.asarray(sp.valid)
+        ntx = W // rq.TILE_W
+        want = {}
+        for i in np.nonzero(valid)[0]:
+            for ty in range(ty0[i], ty1[i] + 1):
+                for tx in range(tx0[i], tx1[i] + 1):
+                    want.setdefault(ty * ntx + tx, []).append(int(i))
+        for order in ("tri", "plane", "direct"):
+            q = _queue_for(sp, order=order)
+            assert not bool(q.overflow)
+            assert _tile_sets(q) == want, order
 
     def test_pairs_binning_overflow_flag(self):
-        from rustexp_tpu.ops.raster_pallas import bin_pairs
-
-        vp, tris = one_tri()  # spans 4 tile rows
-        s = setup_triangles(vp, tris, W, H)
-        assert bool(bin_pairs(s, H, W, cap=8, m_x=1, m_y=1).overflow)
-        assert not bool(bin_pairs(s, H, W, cap=8, m_x=1, m_y=4).overflow)
+        vp, tris = one_tri()  # AABB rows [10, 100)
+        rows = 99 // rq.TILE_H - 10 // rq.TILE_H + 1   # tile rows spanned
+        sp = _planar(vp, tris)
+        kw = dict(s_cap=16, m_x=1, t_cap=None)
+        assert bool(rq.build_queue(sp, H, W, m_y=rows - 1, **kw).overflow)
+        assert not bool(rq.build_queue(sp, H, W, m_y=rows, **kw).overflow)
 
     def test_binning_counts(self):
         vp, tris = one_tri()
-        s = setup_triangles(vp, tris, W, H)
-        bins = bin_triangles(s, H, W, cap=8)
-        counts = np.asarray(bins.counts)
-        # Triangle AABB [10,100)x[10,100) with 32x128 tiles -> rows 0..3, 1 col
-        assert counts.sum() == 4
-        assert not bool(bins.overflow)
+        q = _queue_for(_planar(vp, tris))
+        counts = np.asarray(q.tiles)[:, 1]
+        # AABB [10,100)x[10,100): one tile column, one pair per tile row
+        assert counts.sum() == 99 // rq.TILE_H - 10 // rq.TILE_H + 1
+        assert not bool(q.overflow)
 
 
 class TestShaders:
@@ -213,16 +242,18 @@ class TestPipeline:
         assert np.array_equal(a, b)
 
     def test_pallas_attr_path_matches_xla(self):
-        # The zero-gather pallas path (in-kernel attribute interpolation)
-        # must reproduce the oracle's gather-based deferred shading exactly.
+        # The queue path (in-kernel attribute interpolation) must
+        # reproduce the oracle's gather-based deferred shading exactly.
         scene = pp.make_scene(mesh.make_sphere(12, 24),
                               cubemap.make_procedural_set())
         eye = camera.cam_orbit(0.7)
+        queue = pp.build_scene_queue(scene, eye, W, H)
         for per_pixel in (False, True):
             kw = dict(w=W, h=H, per_pixel=per_pixel, shader_idx=5,
                       show_cm=False)
             a = np.asarray(pp.render_frame(scene, eye, 0.7, backend="xla", **kw))
-            b = np.asarray(pp.render_frame(scene, eye, 0.7, backend="pallas", **kw))
+            b = np.asarray(pp.render_frame(scene, eye, 0.7, backend="queue",
+                                           raster_queue=queue, **kw))
             assert np.array_equal(a, b), f"per_pixel={per_pixel}"
 
     def test_point_and_line_modes(self, cube_scene):
@@ -282,9 +313,11 @@ def test_benchmark_table_matches_reference():
 
 
 class TestQueue:
-    """Flat-queue backend (ops/raster_queue.py) vs the verified bins path."""
+    """Flat-queue backend (ops/raster_queue.py) vs the XLA oracle."""
 
     def test_queue_matches_pallas_bit_exact(self):
+        # kernel (interpret mode), its XLA twin and the whole-frame oracle
+        # agree bit for bit
         scene = pp.make_scene(mesh.make_sphere(8, 16),
                               cubemap.make_procedural_set())
         eye = camera.cam_orbit(0.7)
@@ -292,39 +325,13 @@ class TestQueue:
         for ppx in (False, True):
             kw = dict(w=W, h=H, shader_idx=5, show_cm=False, per_pixel=ppx)
             a = np.asarray(pp.render_frame(scene, eye, 0.7,
-                                           backend="pallas", **kw))
-            b, stale = pp.render_frame(scene, eye, 0.7, backend="queue",
-                                       raster_queue=queue,
-                                       return_overflow=True, **kw)
-            assert not bool(stale)
-            assert np.array_equal(a, np.asarray(b)), f"per_pixel={ppx}"
-
-    def test_queue_build_bitonic_parity(self):
-        # The gated bitonic pair-key sort must build a bit-identical
-        # Queue. Called EAGERLY both times: build_queue reads the module
-        # flag at trace time, so a jitted call would hit the cached
-        # XLA-sort trace and the comparison would be vacuous.
-        from rustexp_tpu.ops import raster_queue as rq
-        from rustexp_tpu.ops.raster_setup import setup_triangles
-
-        scene = pp.make_scene(mesh.make_sphere(8, 16),
-                              cubemap.make_procedural_set())
-        eye = jnp.asarray(camera.cam_orbit(0.7))
-        vp, _, _ = pp.transform_vertices(scene, eye, W, H)
-        s = setup_triangles(vp, scene.tris, W, H)
-        stats = tuple(int(x) for x in rq.queue_stats(s, H, W))
-        caps = rq.suggest_queue_config(stats)
-        kw = dict(s_cap=caps[0], m_y=caps[1], m_x=caps[2], t_cap=caps[3])
-        qa = rq.build_queue(s, H, W, **kw)
-        old = rq.USE_BITONIC_SORT
-        rq.USE_BITONIC_SORT = True
-        try:
-            qb = rq.build_queue(s, H, W, **kw)
-        finally:
-            rq.USE_BITONIC_SORT = old
-        for f in qa._fields:
-            a, b = np.asarray(getattr(qa, f)), np.asarray(getattr(qb, f))
-            assert np.array_equal(a, b), f"Queue.{f} diverged"
+                                           backend="xla", **kw))
+            for backend in ("queue", "queue_xla"):
+                b, stale = pp.render_frame(scene, eye, 0.7, backend=backend,
+                                           raster_queue=queue,
+                                           return_overflow=True, **kw)
+                assert not bool(stale)
+                assert np.array_equal(a, np.asarray(b)), (backend, ppx)
 
     def test_queue_stale_on_camera_jump(self):
         scene = pp.make_scene(mesh.make_sphere(8, 16),
@@ -395,49 +402,59 @@ class TestQueue:
 
 
 def test_overflow_is_loud():
-    # A deliberately tiny bin cap must not drop triangles silently: the
-    # overflow flag fires, and the default (auto-sized) cap renders the
-    # same frame with overflow clear.
+    # A deliberately tiny slot cap must not drop triangles silently: the
+    # stale flag fires, and the suggested caps render the oracle's frame
+    # with the flag clear.
     scene = pp.make_scene(mesh.make_sphere(12, 24), cubemap.make_procedural_set())
-    eye = camera.cam_orbit(0.7)
-    kw = dict(w=W, h=H, shader_idx=0, show_cm=False, backend="pallas",
+    eye = jnp.asarray(camera.cam_orbit(0.7))
+    xs, ys, zs, _, _, _ = pp.transform_corners_planar(scene, eye, W, H)
+    sp = setup_triangles_planar(xs, ys, zs, W, H)
+    small = rq.build_queue(sp, H, W, s_cap=1, m_y=4, m_x=2, t_cap=None)
+    kw = dict(w=W, h=H, shader_idx=0, show_cm=False, backend="queue",
               return_overflow=True)
-    _, overflow_small = pp.render_frame(scene, eye, 0.7, raster_cap=8, **kw)
-    assert bool(overflow_small)
-    fb, overflow = pp.render_frame(scene, eye, 0.7, **kw)
-    assert not bool(overflow)
+    _, stale_small = pp.render_frame(scene, eye, 0.7, raster_queue=small, **kw)
+    assert bool(stale_small)
+    fb, stale = pp.render_frame(scene, eye, 0.7, raster_queue=_queue_for(sp),
+                                **kw)
+    assert not bool(stale)
     fb_plain = pp.render_frame(scene, eye, 0.7, w=W, h=H, shader_idx=0,
-                               show_cm=False, backend="pallas")
+                               show_cm=False, backend="xla")
     assert np.array_equal(np.asarray(fb), np.asarray(fb_plain))
 
 
-def test_suggest_binning_cpu():
-    scene = pp.make_scene(mesh.make_sphere(10, 20), cubemap.make_procedural_set())
-    cap, (mx, my), rows = pp.suggest_binning(scene, camera.cam_orbit(0.3), W, H)
-    assert cap % 512 == 0 and cap >= 512
-    assert 1 <= mx <= 8 and 1 <= my <= 8
-    from rustexp_tpu.ops.raster_queue import SHADE_W
-    assert rows is None or 64 <= rows < H * (W // SHADE_W) * 3 // 4
-
-
 def test_bins_compacted_shade_parity():
-    """Bins backend with raster_rows (compacted per-pixel shade) is
-    bit-identical to its full-frame shade, and an undersized rows cap
-    raises overflow instead of silently dropping covered pixels."""
+    """The compacted per-pixel shade over the queue's occupied-block list
+    is bit-identical to the full-frame oracle shade, and an undersized
+    rows cap raises the stale flag instead of silently dropping covered
+    pixels."""
     scene = pp.make_scene(mesh.make_sphere(12, 24), cubemap.make_procedural_set())
-    eye = camera.cam_orbit(0.3)
+    eye = jnp.asarray(camera.cam_orbit(0.3))
     kw = dict(w=W, h=H, per_pixel=True, shader_idx=5, show_cm=False,
-              backend="pallas", return_overflow=True)
-    full, ov_full = pp.render_frame(scene, eye, 0.7, **kw)
-    _, _, rows = pp.suggest_binning(scene, eye, W, H)
-    if rows is None:  # high coverage: still exercise the compacted path
-        from rustexp_tpu.ops.raster_queue import SHADE_W
-        rows = H * (W // SHADE_W)
-    comp, ov_comp = pp.render_frame(scene, eye, 0.7, raster_rows=rows, **kw)
-    assert not bool(ov_full) and not bool(ov_comp)
+              return_overflow=True)
+    full, _ = pp.render_frame(scene, eye, 0.7, backend="xla", **kw)
+    xs, ys, zs, _, _, _ = pp.transform_corners_planar(scene, eye, W, H)
+    sp = setup_triangles_planar(xs, ys, zs, W, H)
+    q = _queue_for(sp)
+    comp, stale = pp.render_frame(scene, eye, 0.7, backend="queue",
+                                  raster_queue=q, **kw)
+    assert not bool(stale)
     assert np.array_equal(np.asarray(full), np.asarray(comp))
-    _, ov_tiny = pp.render_frame(scene, eye, 0.7, raster_rows=8, **kw)
-    assert bool(ov_tiny)
+    stats = tuple(int(x) for x in rq.queue_stats(sp, H, W))
+    s_cap, m_y, m_x, _ = rq.suggest_queue_config(stats)
+    tiny = rq.build_queue(sp, H, W, s_cap=s_cap, m_y=m_y, m_x=m_x, t_cap=8)
+    _, stale_tiny = pp.render_frame(scene, eye, 0.7, backend="queue",
+                                    raster_queue=tiny, **kw)
+    assert bool(stale_tiny)
+
+
+def test_suggest_queue_config_quantized():
+    """Caps round up to 16 chunks / 64 shade blocks with margin, and the
+    span caps get one tile of headroom each way."""
+    s_cap, m_y, m_x, t_cap = rq.suggest_queue_config((17, 2, 3, 100))
+    assert s_cap % 16 == 0 and s_cap >= 17 * 1.3
+    assert t_cap % 64 == 0 and t_cap >= 100 * 1.15
+    assert (m_y, m_x) == (3, 4)
+    assert rq.suggest_queue_config((0, 1, 1, 0))[::3] == (16, 64)
 
 
 def test_viewer_headless():
@@ -560,38 +577,28 @@ def test_queue_granularity_dual_bit_exact():
     assert sa != sb
 
 
-def test_queue_defer_lin_bit_exact():
-    """The z/slot-only kernel + per-winner re-evaluation (defer=True) must
-    reproduce the select+store path exactly: same integer edge values,
-    same float formulas, evaluated per pixel instead of per pair. (Kept as
-    a flag: measured SLOWER on v5e — per-pixel row gathers at ~0.5
-    ns/element lose to in-kernel vector selects; see pipeline docstring.)"""
-    import jax.numpy as jnp
-    from rustexp_tpu.assets import cubemap, mesh as mesh_assets
-    from rustexp_tpu.raster import camera, pipeline as pp
-
-    scene = pp.make_scene(mesh_assets.make_sphere(10, 20),
+@pytest.mark.parametrize("per_pixel", [True, False])
+def test_queue_kernel_matches_xla_twin(per_pixel):
+    """The Pallas kernel (interpret mode) and its plain-XLA twin produce
+    the same frame bit for bit through raster_and_shade_queue — the twin
+    is the kernel's timing baseline and its CPU stand-in."""
+    scene = pp.make_scene(mesh.make_sphere(10, 20),
                           cubemap.make_procedural_set())
     eye = jnp.asarray(camera.cam_orbit(0.7))
     w = h = 128
     queue = pp.build_scene_queue(scene, eye, w, h)
-    for per_pixel in (True, False):
-        colors = None
-        if not per_pixel:
-            _, world, n_world = pp.transform_vertices(scene, eye, w, h)
-            colors = pp.sh.shader_fn(5)(world, n_world, scene.colors, eye,
-                                        jnp.float32(0.7), scene.cm)
-        bg = pp.background(0, w, h)
-        a, _ = pp.raster_and_shade_queue(scene, queue, colors, eye,
-                                         jnp.float32(0.7), w=w, h=h,
-                                         per_pixel=per_pixel, shader_idx=5,
-                                         bg_fb=bg, defer=False)
-        b, _ = pp.raster_and_shade_queue(scene, queue, colors, eye,
-                                         jnp.float32(0.7), w=w, h=h,
-                                         per_pixel=per_pixel, shader_idx=5,
-                                         bg_fb=bg, defer=True)
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
-                                      err_msg=f"per_pixel={per_pixel}")
+    colors = None
+    if not per_pixel:
+        _, world, n_world = pp.transform_vertices(scene, eye, w, h)
+        colors = pp.sh.shader_fn(5)(world, n_world, scene.colors, eye,
+                                    jnp.float32(0.7), scene.cm)
+    bg = pp.background(0, w, h)
+    outs = [pp.raster_and_shade_queue(scene, queue, colors, eye,
+                                      jnp.float32(0.7), w=w, h=h,
+                                      per_pixel=per_pixel, shader_idx=5,
+                                      bg_fb=bg, impl=impl)[0]
+            for impl in ("kernel", "xla")]
+    np.testing.assert_array_equal(np.asarray(outs[0]), np.asarray(outs[1]))
 
 
 def _planar_setup_and_extra(scene, eye, w, h):
@@ -606,8 +613,6 @@ def _planar_setup_and_extra(scene, eye, w, h):
 
 
 def _masked_eq(z1, m1, z2, m2):
-    # z is garbage at never-visited tiles by design (Queue docstring):
-    # compare only under the coverage mask.
     return np.array_equal(m1, m2) and np.array_equal(z1[m1], z2[m1])
 
 
@@ -632,21 +637,11 @@ def test_queue_plane_order_bit_exact():
         assert not bool(q.overflow)
         z, mask, lin, _ = rq.raster_attrs_queue(q, setup, extra, 1, 0, H, W)
         res[order] = (np.asarray(z), np.asarray(mask),
-                      np.asarray(lin[0]), np.asarray(q.ids),
-                      np.asarray(q.scal))
-        # same per-tile pair multisets
-    for (qa, qb) in ((res["tri"], res["plane"]),):
-        tiles_a, tiles_b = {}, {}
-        for (ids, scal), out in (((qa[3], qa[4]), tiles_a),
-                                 ((qb[3], qb[4]), tiles_b)):
-            for c in range(ids.shape[0]):
-                ty, tx, _, cnt = scal[c, :4]
-                out.setdefault((int(ty), int(tx)), []).extend(
-                    sorted(ids[c, :cnt].tolist()))
-        assert {k: sorted(v) for k, v in tiles_a.items() if v} \
-            == {k: sorted(v) for k, v in tiles_b.items() if v}
-    zt, mt, lt, _, _ = res["tri"]
-    zp, mp, lp, _, _ = res["plane"]
+                      np.asarray(lin[0]), _tile_sets(q))
+    # same per-tile pair multisets
+    assert res["tri"][3] == res["plane"][3]
+    zt, mt, lt, _ = res["tri"]
+    zp, mp, lp, _ = res["plane"]
     assert _masked_eq(zp, mp, zt, mt)
     assert np.array_equal(lp[mt], lt[mt])
 
@@ -662,26 +657,28 @@ def test_queue_direct_order_identical_to_tri():
     sph = mesh.make_sphere(4, 8)
     assert sph.num_tris <= 64, "test mesh must hit the direct-order regime"
     # Second config: a 1024-triangle sphere rendered onto a 128x128 frame
-    # (8 tiles) so per-tile counts exceed one chunk — exercises the
-    # k_of > 0 rank-match path that the tiny mesh never reaches.
+    # in 16-row tiles (8 tiles) so per-tile counts exceed one chunk —
+    # exercises the k_of > 0 rank-match path that the tiny mesh never
+    # reaches.
     dense = mesh.make_sphere(16, 32)
-    cases = [(sph, W, H), (dense, 128, 128)]
+    cases = [(sph, W, H, rq.TILE_H), (dense, 128, 128, 16)]
     saw_multichunk = False
-    for msh, w_, h_ in cases:
+    for msh, w_, h_, th in cases:
         scene = pp.make_scene(msh, cubemap.make_procedural_set())
         eye = jnp.asarray(camera.cam_orbit(0.7))
         setup, _ = _planar_setup_and_extra(scene, eye, w_, h_)
-        stats = tuple(int(x) for x in rq.queue_stats(setup, h_, w_))
+        stats = tuple(int(x) for x in rq.queue_stats(setup, h_, w_,
+                                                     tile_h=th))
         s_cap, m_y, m_x, t_cap = rq.suggest_queue_config(stats)
-        for kw in ({}, {"row_stride": 2, "row_offset": 1}):
+        for kw in ({"tile_h": th},
+                   {"tile_h": th, "row_stride": 2, "row_offset": 1}):
             qt = rq.build_queue(setup, h_, w_, s_cap=s_cap, m_y=m_y,
                                 m_x=m_x, t_cap=t_cap, order="tri", **kw)
             qd = rq.build_queue(setup, h_, w_, s_cap=s_cap, m_y=m_y,
                                 m_x=m_x, t_cap=t_cap, order="direct", **kw)
             assert not bool(qt.overflow) and not bool(qd.overflow)
-            scal = np.asarray(qt.scal)
             saw_multichunk |= bool(
-                ((scal[:, 2] == 0) & (scal[:, 3] > 0)).any())
+                (np.asarray(qt.tiles)[:, 1] > rq.CHUNK).any())
             lt = jax.tree_util.tree_leaves(qt)
             ld = jax.tree_util.tree_leaves(qd)
             assert len(lt) == len(ld)

@@ -1,8 +1,8 @@
 """Randomized backend-equivalence fuzzing for the rasterizer.
 
 The deterministic parity tests (test_raster.py) cover real scenes; these
-push randomized and adversarial geometry through the same three backends
-and require BIT-equality. Failure categories this is designed to catch:
+push randomized and adversarial geometry through the whole-frame oracle,
+the flat-queue kernel and its XLA twin and require BIT-equality. Failure categories this is designed to catch:
 fill-convention drift on slivers and shared edges, backface/zero-area cull
 disagreement, depth-tie winner divergence on coincident triangles, AABB
 clipping at (and beyond) the frame border, and queue-cap/binning logic
@@ -18,9 +18,9 @@ import numpy as np
 import jax.numpy as jnp
 
 from rustexp_tpu.assets import cubemap, mesh
-from rustexp_tpu.ops.raster_setup import setup_triangles
+from rustexp_tpu.ops import raster_queue as rq
+from rustexp_tpu.ops.raster_setup import setup_triangles, setup_triangles_planar
 from rustexp_tpu.ops.raster_xla import raster_gbuffer_xla
-from rustexp_tpu.ops.raster_pallas import raster_gbuffer_pallas
 from rustexp_tpu.raster import camera, pipeline as pp
 
 W, H = 128, 128
@@ -84,17 +84,35 @@ def random_soup(seed: int):
     return jnp.asarray(vp), jnp.asarray(tris)
 
 
+def _queue_gbuffer(vp, tris, raster):
+    """(z, winning triangle id) through the flat queue: the id rides a
+    2-MAD attribute channel (id, 0, 0), which interpolates to itself."""
+    c = vp[tris.reshape(-1)].reshape(T, 3, 4)
+    sp = setup_triangles_planar(c[:, :, 0].T, c[:, :, 1].T, c[:, :, 2].T,
+                                W, H)
+    stats = tuple(int(x) for x in rq.queue_stats(sp, H, W))
+    s_cap, m_y, m_x, t_cap = rq.suggest_queue_config(stats)
+    q = rq.build_queue(sp, H, W, s_cap=s_cap, m_y=m_y, m_x=m_x, t_cap=t_cap)
+    zero = jnp.zeros((T,), jnp.float32)
+    tid = jnp.arange(T, dtype=jnp.float32)
+    z, mask, (lin,), stale = raster(q, sp, (tid, zero, zero), 1, 0, H, W)
+    assert not bool(stale)
+    ids = np.where(np.asarray(mask), np.asarray(lin).astype(np.int32), -1)
+    return np.asarray(z), ids
+
+
 def test_gbuffer_backends_bit_equal_on_fuzz_soups():
     for seed in range(4):
         vp, tris = random_soup(seed)
         s = setup_triangles(vp, tris, W, H)
         gx = raster_gbuffer_xla(s, H, W)
-        gp, overflow = raster_gbuffer_pallas(s, H, W)
-        assert not bool(overflow), f"seed {seed}"
-        for f in ("tid", "z", "b"):
-            a, b = np.asarray(getattr(gx, f)), np.asarray(getattr(gp, f))
-            assert np.array_equal(a, b), (
-                f"seed {seed} field {f}: {np.argwhere(a != b)[:4]}")
+        for name, raster in (("kernel", rq.raster_attrs_queue),
+                             ("twin", rq.raster_attrs_queue_xla)):
+            z, tid = _queue_gbuffer(vp, tris, raster)
+            for f, a, b in (("tid", np.asarray(gx.tid), tid),
+                            ("z", np.asarray(gx.z), z)):
+                assert np.array_equal(a, b), (
+                    f"seed {seed} {name} {f}: {np.argwhere(a != b)[:4]}")
         # Sanity: the soup actually rasterized something and culled the
         # offscreen/degenerate cases (a trivially-empty frame would make
         # the equality vacuous).
@@ -125,7 +143,7 @@ def jittered_scene(seed: int, amp: float):
 
 
 def test_sharded_queue_matches_single_device_on_jittered_mesh():
-    # The production multi-chip path on irregular geometry: per-band
+    # The production multi-device path on irregular geometry: per-band
     # queues + integer band translation must reproduce the single-device
     # queue render bit-exactly even for slivers crossing band boundaries.
     import jax
@@ -153,7 +171,7 @@ def test_sharded_queue_matches_single_device_on_jittered_mesh():
 
 
 def test_queue_matches_pallas_on_jittered_meshes():
-    # The production queue backend against the binned-tile kernel on
+    # The production queue backend against the whole-frame oracle on
     # deformed geometry, both shading modes, bit-exact. Queue caps are
     # auto-sized per scene (build_scene_queue), so this also fuzzes the
     # cap-suggestion logic against irregular coverage.
@@ -164,7 +182,7 @@ def test_queue_matches_pallas_on_jittered_meshes():
         for ppx in (False, True):
             kw = dict(w=W, h=H, shader_idx=5, show_cm=False, per_pixel=ppx)
             a = np.asarray(pp.render_frame(scene, eye, 0.7,
-                                           backend="pallas", **kw))
+                                           backend="xla", **kw))
             b, stale = pp.render_frame(scene, eye, 0.7, backend="queue",
                                        raster_queue=queue,
                                        return_overflow=True, **kw)
